@@ -1,0 +1,429 @@
+"""MULLS-ICP: multi-metric linear-least-squares ICP — port of
+``mm_lls_icp`` in ``mulls_tpu/frontend/icp.py`` (reference
+`cregistration.hpp:1114-1440`).
+
+* correspondences: brute-force 1-NN per feature class through the ``nn``
+  CUDA kernel (`determine_corres` parity: candidate gate at 2.5x threshold,
+  one-source-per-target duplicate rejection, annealed per-class distance
+  thresholds, normal/principal-direction consistency gate —
+  `cregistration.hpp:1701-1835`)
+* one joint 6x6 normal-equation system per iteration accumulating
+  point-to-plane, point-to-line and point-to-point rows with the
+  reference's weighting schemes (`cregistration.hpp:1869-2275, 2686-2737`)
+* the reference's ``lax.while_loop`` becomes a Python loop of ``max_iter``
+  steps; once ``done`` is set, a mask on the device freezes the state, so
+  there is no host sync per iteration and the result equals an early exit
+* the normal equations are built in coordinates centred on the source
+  correspondences, which conditions ATPA so f32 suffices; the solution and
+  information matrix are mapped back to the uncentred frame exactly.
+
+Everything is masked: invalid correspondences contribute weight 0.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, NamedTuple
+
+import torch
+
+from mulls_tpu_torch.config import RegConfig
+from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.core.cloud import FeatureCloud, masked_max, masked_min
+from mulls_tpu_torch.core.tree import Struct
+from mulls_tpu_torch.ops.neighbors import (nearest_neighbor,
+                                           normal_shooting_neighbor)
+
+CLASS_ORDER = ("ground", "pillar", "facade", "beam", "roof", "vertex")
+_PLANAR = {"ground": True, "facade": True, "roof": True,
+           "pillar": False, "beam": False, "vertex": False}
+# feature-type bitstring index (used_feature_type, `mulls_slam.cpp` order)
+_TYPE_IDX = {"ground": 0, "pillar": 1, "facade": 2, "beam": 3, "roof": 4,
+             "vertex": 5}
+_INT32_MAX = (1 << 31) - 1
+
+
+@dataclass
+class RegResult(Struct):
+    transform: torch.Tensor  # [4,4] source -> target
+    information: torch.Tensor  # [6,6] (tx,ty,tz,qx,qy,qz) parameterization
+    sigma: torch.Tensor  # posterior unit-weight std (m)
+    confidence: torch.Tensor  # necessary-corr ratio
+    process_code: torch.Tensor  # 1 ok | -1 diverged | -2 few corr | -3 sigma
+    iterations: torch.Tensor
+
+    @staticmethod
+    def not_run(T: torch.Tensor) -> "RegResult":
+        """Structure-matching placeholder (code 0 = not run)."""
+        dev = T.device
+        return RegResult(
+            transform=T, information=torch.eye(6, device=dev),
+            sigma=torch.tensor(1.0, device=dev),
+            confidence=torch.tensor(0.0, device=dev),
+            process_code=torch.tensor(0, dtype=torch.int32, device=dev),
+            iterations=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+class _Corr(NamedTuple):
+    t_idx: torch.Tensor  # [S] int64 target index of the 1-NN
+    valid: torch.Tensor  # [S] bool
+    sqdist: torch.Tensor  # [S]
+
+
+def _find_corres(s_xyz, s_dir, s_mask, target: FeatureCloud, dis_thre,
+                 cos_bearing: float, normal_check: bool,
+                 duplicate_check: bool = True,
+                 normal_shooting: bool = False) -> _Corr:
+    """determine_corres parity (`cregistration.hpp:1701-1835`)."""
+    t_cap = target.capacity
+    if normal_shooting:
+        idx, d2 = normal_shooting_neighbor(s_xyz, s_dir, s_mask, target.xyz,
+                                           target.mask, 2.5 * dis_thre)
+    else:
+        idx, d2 = nearest_neighbor(s_xyz, s_mask, target.xyz, target.mask)
+    idx = idx.to(torch.int64)
+    cand = s_mask & (d2 <= (2.5 * dis_thre) ** 2)
+    if duplicate_check:
+        # one source per target: keep the minimum-distance source (segment
+        # min of the distance, then of the source ordinal as tie-break)
+        n = s_xyz.shape[0]
+        dev = s_xyz.device
+        seg = torch.where(cand, idx, t_cap)
+        best_d2 = torch.full((t_cap + 1,), float("inf"), device=dev)
+        best_d2.scatter_reduce_(0, seg, torch.where(cand, d2, float("inf")),
+                                "amin", include_self=False)
+        tied = cand & (d2 <= best_d2[idx])
+        ordinal = torch.arange(n, dtype=torch.int64, device=dev)
+        best_ord = torch.full((t_cap + 1,), _INT32_MAX, dtype=torch.int64,
+                              device=dev)
+        best_ord.scatter_reduce_(0, torch.where(tied, idx, t_cap),
+                                 torch.where(tied, ordinal, 1 << 30),
+                                 "amin", include_self=False)
+        cand = tied & (best_ord[idx] == ordinal)
+    keep = cand & (d2 <= dis_thre ** 2)
+    if normal_check:
+        tn = target.normal[idx]
+        cosang = torch.abs(torch.sum(s_dir * tn, dim=-1))
+        keep = keep & (cosang >= cos_bearing)
+    return _Corr(t_idx=idx, valid=keep, sqdist=d2)
+
+
+def _pt2pl_system(p, q, nt, w):
+    """J = [n | p x n-ish], rhs d = n.(q-p) (`cregistration.hpp:2066-2156`)."""
+    a = nt[:, 2] * p[:, 1] - nt[:, 1] * p[:, 2]
+    b = nt[:, 0] * p[:, 2] - nt[:, 2] * p[:, 0]
+    c = nt[:, 1] * p[:, 0] - nt[:, 0] * p[:, 1]
+    J = torch.stack([nt[:, 0], nt[:, 1], nt[:, 2], a, b, c], dim=-1)  # [N,6]
+    d = torch.sum(nt * (q - p), dim=-1)
+    ATA = (J * w[:, None]).T @ J
+    ATb = (J * w[:, None]).T @ d
+    return ATA, ATb, J, d
+
+
+def _pt2li_rows(p, v):
+    """A [N,3,6] for the cross-product point-to-line residual
+    (`cregistration.hpp:2195-2224`)."""
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    vx, vy, vz = v[:, 0], v[:, 1], v[:, 2]
+    zero = torch.zeros_like(px)
+    return torch.stack([
+        torch.stack([zero, -vz, vy, vy * py + vz * pz, -vy * px, -vz * px],
+                    -1),
+        torch.stack([vz, zero, -vx, -vx * py, vz * pz + vx * px, -vz * py],
+                    -1),
+        torch.stack([-vy, vx, zero, -vx * pz, -vy * pz, vx * px + vy * py],
+                    -1),
+    ], dim=1)
+
+
+def _pt2li_rhs(p, q, v):
+    d = p - q
+    bx = -v[:, 1] * d[:, 2] + v[:, 2] * d[:, 1]
+    by = -v[:, 2] * d[:, 0] + v[:, 0] * d[:, 2]
+    bz = -v[:, 0] * d[:, 1] + v[:, 1] * d[:, 0]
+    return torch.stack([bx, by, bz], dim=-1)
+
+
+def _pt2pt_rows(p):
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    zero = torch.zeros_like(px)
+    one = torch.ones_like(px)
+    return torch.stack([
+        torch.stack([one, zero, zero, zero, pz, -py], -1),
+        torch.stack([zero, one, zero, -pz, zero, px], -1),
+        torch.stack([zero, zero, one, py, -px, zero], -1),
+    ], dim=1)
+
+
+def _rows_system(A, b, w):
+    Aw = A * w[:, None, None]
+    ATA = torch.einsum("nki,nkj->ij", Aw, A)
+    ATb = torch.einsum("nki,nk->i", Aw, b)
+    return ATA, ATb
+
+
+def _weight_by_dist_adaptive(dist, iter_num, cfg: RegConfig):
+    b = min(cfg.dist_weight_base_min + cfg.dist_weight_base_step * iter_num,
+            cfg.dist_weight_base_max)
+    w = b + (1.0 - b) * dist / cfg.dist_weight_unit_dist
+    return torch.clamp(w, min=0.01)
+
+
+def _weight_by_residual(res, window):
+    # Huber (`cregistration.hpp:2710-2722`, delta=1)
+    return torch.where(res > window,
+                       (2.0 * res * window - window * window)
+                       / torch.clamp(res * res, min=1e-12),
+                       1.0)
+
+
+def _weight_by_intensity(pi, qi, scale):
+    return torch.exp(-torch.abs(pi - qi) / scale)
+
+
+def mm_lls_icp(source: Dict[str, FeatureCloud],
+               target: Dict[str, FeatureCloud], cfg: RegConfig,
+               init_guess: torch.Tensor, max_iter: int,
+               dis_thre_add=0.0) -> RegResult:
+    """Register source onto target; returns T such that T @ source ~ target.
+
+    ``cfg.used_feature_type`` selects classes.  ``dis_thre_add`` (float or
+    0-d tensor) widens the initial correspondence gate — the reference's
+    ``add_length`` recovery (`mulls_slam.cpp:650-657, 686-693`).
+    """
+    dev = init_guess.device
+    f32 = torch.float32
+    used = [n for n in CLASS_ORDER
+            if cfg.used_feature_type[_TYPE_IDX[n]] == "1" and n in source]
+    cos_bearing = math.cos(math.radians(cfg.normal_bearing))
+    strategy = cfg.corr_weight_strategy
+    converge_rot = math.radians(cfg.converge_rot_d)
+    max_rot = math.radians(cfg.max_bearable_rotation_d)
+    add = torch.as_tensor(dis_thre_add, dtype=f32, device=dev)
+    max_tran = 2.0 * (cfg.corr_dis_thre_init + add)
+    eye4 = torch.eye(4, dtype=f32, device=dev)
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+
+    s_counts = {n: source[n].count for n in used}
+    src_feature_count = sum(s_counts[n] for n in ("pillar", "facade", "beam")
+                            if n in s_counts)
+    src_feature_count = torch.clamp(
+        torch.as_tensor(src_feature_count, device=dev), min=1)
+
+    # intersection (bbx) filter (`cregistration.hpp:1186-1188, 2894`)
+    if cfg.apply_intersection_filter:
+        tmin = torch.full((3,), float("inf"), device=dev)
+        tmax = torch.full((3,), -float("inf"), device=dev)
+        for n in used:
+            tmin = torch.minimum(tmin, masked_min(
+                target[n].xyz, target[n].mask[:, None], dim=0))
+            tmax = torch.maximum(tmax, masked_max(
+                target[n].xyz, target[n].mask[:, None], dim=0))
+        bbx_pad = 2.0 * cfg.corr_dis_thre_init
+        tmin, tmax = tmin - bbx_pad, tmax + bbx_pad
+    else:
+        tmin = tmax = None
+
+    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    T = init_guess.to(f32)
+    thre = torch.full((len(used),), cfg.corr_dis_thre_init, dtype=f32,
+                      device=dev) + add
+    done = torch.tensor(False, device=dev)
+    code = torch.tensor(0, dtype=torch.int32, device=dev)
+    sigma2 = torch.tensor(1.0, dtype=f32, device=dev)
+    info = eye6
+    conf = torch.tensor(1.0, dtype=f32, device=dev)
+
+    for k in range(max_iter):
+        corrs = {}
+        s_pts = {}
+        for ci, name in enumerate(used):
+            sc = source[name]
+            s_xyz = se3.transform_points(T, sc.xyz)
+            s_dir = se3.rotate_vectors(T, sc.normal)
+            s_mask = sc.mask
+            if tmin is not None:
+                s_mask = s_mask & torch.all((s_xyz >= tmin) & (s_xyz <= tmax),
+                                            dim=-1)
+            corrs[name] = _find_corres(
+                s_xyz, s_dir, s_mask, target[name], thre[ci], cos_bearing,
+                normal_check=(name != "vertex"),
+                normal_shooting=(cfg.normal_shooting_on and _PLANAR[name]))
+            s_pts[name] = s_xyz
+
+        cnt = {n: torch.sum(corrs[n].valid) for n in used}
+        total = sum(cnt.values())
+        necessary = sum(cnt[n] for n in ("pillar", "facade", "beam")
+                        if n in cnt)
+        necessary = torch.as_tensor(necessary, device=dev)
+        conf_new = necessary / src_feature_count
+        too_few = ((total < cfg.min_total_corr_num)
+                   | (necessary < cfg.min_neccessary_corr_num)
+                   | (conf_new < cfg.min_neccessary_corr_ratio))
+
+        # x,y,z balance weight (`cregistration.hpp:1892-1900`)
+        m1 = cnt.get("ground", 0) + cnt.get("roof", 0)
+        m2, m3, m4 = (cnt.get("facade", 0), cnt.get("pillar", 0),
+                      cnt.get("beam", 0))
+        if strategy[0] == "1":
+            w_ground = torch.clamp(
+                cfg.z_xy_balance_ratio * (m2 + 2 * m3 - m4)
+                / (1e-4 + 2.0 * m1), min=0.01)
+        else:
+            w_ground = torch.tensor(1.0, device=dev)
+        class_w = {n: (w_ground if n in ("ground", "roof") else 1.0)
+                   for n in used}
+
+        # centred normal equations
+        wsum = torch.tensor(1e-6, dtype=f32, device=dev)
+        csum = torch.zeros((3,), dtype=f32, device=dev)
+        for name in used:
+            v = corrs[name].valid
+            wsum = wsum + torch.sum(v)
+            csum = csum + torch.sum(torch.where(v[:, None], s_pts[name], 0.0),
+                                    0)
+        center = csum / wsum
+
+        ATA = torch.zeros((6, 6), dtype=f32, device=dev)
+        ATb = torch.zeros((6,), dtype=f32, device=dev)
+        vtpv = torch.tensor(0.0, dtype=f32, device=dev)
+        nobs = torch.tensor(0.0, dtype=f32, device=dev)
+        per_class = {}
+        late = it > cfg.residual_weight_after_iter
+        for name in used:
+            sc, tc, corr = source[name], target[name], corrs[name]
+            p = s_pts[name] - center
+            q_abs = tc.xyz[corr.t_idx]
+            q = q_abs - center
+            tn = tc.normal[corr.t_idx]
+            pi, qi = sc.intensity, tc.intensity[corr.t_idx]
+            w = torch.where(corr.valid, class_w[name], 0.0)
+            if strategy[2] == "1":
+                w = w * _weight_by_dist_adaptive(
+                    torch.linalg.norm(q_abs, dim=-1), k, cfg)
+            if strategy[3] == "1":
+                w = w * _weight_by_intensity(pi, qi, cfg.intensity_scale)
+            if _PLANAR[name]:
+                d = torch.sum(tn * (q - p), dim=-1)
+                if strategy[1] == "1":
+                    rw = _weight_by_residual(torch.abs(d),
+                                             cfg.pt2pl_res_window)
+                    w = w * torch.where(late, rw, 1.0)
+                ata, atb, J, d = _pt2pl_system(p, q, tn, w)
+                per_class[name] = ("pl", J, d, w)
+            elif name == "vertex":
+                A = _pt2pt_rows(p)
+                b = -(p - q)
+                if strategy[1] == "1":
+                    rw = _weight_by_residual(torch.linalg.norm(p - q, dim=-1),
+                                             cfg.pt2pt_res_window)
+                    w = w * torch.where(late, rw, 1.0)
+                ata, atb = _rows_system(A, b, w)
+                per_class[name] = ("li", A, b, w)
+            else:  # pillar / beam: point-to-line via primary direction
+                A = _pt2li_rows(p, tn)
+                b = _pt2li_rhs(p, q, tn)
+                if strategy[1] == "1":
+                    rw = _weight_by_residual(torch.linalg.norm(b, dim=-1),
+                                             cfg.pt2li_res_window)
+                    w = w * torch.where(late, rw, 1.0)
+                ata, atb = _rows_system(A, b, w)
+                per_class[name] = ("li", A, b, w)
+            ATA = ATA + ata
+            ATb = ATb + atb
+
+        # solve (ridge epsilon keeps the all-masked case finite)
+        ATA_r = ATA + 1e-6 * eye6
+        x = torch.linalg.solve_ex(ATA_r, ATb)[0]
+
+        # degeneracy-aware solution remapping (extension of the reference
+        # package): whiten by the diagonal, zero the update along
+        # eigendirections with eigenvalue < degeneracy_thre
+        if cfg.degeneracy_thre > 0.0:
+            tr_t = torch.trace(ATA_r[:3, :3])
+            tr_r = torch.trace(ATA_r[3:, 3:])
+            rho = torch.sqrt(torch.clamp(tr_r, min=1e-9)
+                             / torch.clamp(tr_t, min=1e-9))
+            s_bal = torch.cat([torch.ones(3, dtype=f32, device=dev),
+                               rho.expand(3)])
+            norm = torch.clamp(tr_t / 3.0, min=1e-9)
+            Ahat = ATA_r / s_bal[:, None] / s_bal[None, :] / norm
+            lam, Vh = torch.linalg.eigh(Ahat)
+            keep = (lam >= cfg.degeneracy_thre).to(f32)
+            z = s_bal * x
+            x = (Vh @ (keep * (Vh.T @ z))) / s_bal
+
+        # residuals at the solution -> posterior sigma^2
+        for name in used:
+            kind, A_or_J, b_or_d, w = per_class[name]
+            if kind == "pl":
+                r = A_or_J @ x - b_or_d
+                vtpv = vtpv + torch.sum(w * r * r)
+                nobs = nobs + torch.sum(w > 0)
+            else:
+                r = torch.einsum("nkj,j->nk", A_or_J, x) - b_or_d
+                vtpv = vtpv + torch.sum(w * torch.sum(r * r, -1))
+                nobs = nobs + 3.0 * torch.sum(w > 0)
+        sigma2_new = vtpv / torch.clamp(nobs - 6.0, min=1.0)
+
+        # un-centre: T_step = Trans(c) @ T'(x) @ Trans(-c)
+        Tp = se3.from_x(x)
+        Tc = eye4.clone()
+        Tc[:3, 3] = center
+        Tci = eye4.clone()
+        Tci[:3, 3] = -center
+        T_step = Tc @ Tp @ Tci
+
+        # information matrix in the uncentred frame: ATA_unc = G^-T ATA G^-1
+        Ginv = eye6.clone()
+        Ginv[:3, 3:] = -se3.skew(center)
+        ATA_unc = Ginv.T @ ATA_r @ Ginv
+        # euler -> quaternion covariance propagation
+        # (`cregistration.hpp:1953-1964, 2795-2836`)
+        Jbig = eye6.clone()
+        Jbig[3:, 3:] = se3.quat_euler_jacobi(x[3:6])
+        cof = torch.linalg.inv_ex(ATA_unc)[0]
+        cof_q = Jbig @ cof @ Jbig.T
+        info_new = torch.linalg.inv_ex(cof_q + 1e-12 * eye6)[0] \
+            / torch.clamp(sigma2_new, min=1e-12)
+
+        step_t = torch.linalg.norm(T_step[:3, 3])
+        step_r = se3.rotation_angle(T_step[:3, :3])
+        diverged = (step_t > max_tran) | (step_r > max_rot)
+        converged = (it > 2) & (step_t < cfg.converge_tran) & \
+            (step_r < converge_rot)
+        last_iter = it >= max_iter - 1
+
+        # status codes (`cregistration.hpp:1131-1136`)
+        sigma_bad = torch.sqrt(sigma2_new) >= cfg.sigma_thre
+        code_new = torch.where(
+            too_few, -2,
+            torch.where(diverged, -1,
+                        torch.where((converged | last_iter) & sigma_bad, -3,
+                                    torch.where(converged | last_iter, 1,
+                                                0)))).to(torch.int32)
+        done_new = too_few | diverged | converged | last_iter
+
+        apply_step = ~(too_few | diverged)
+        T_new = torch.where(apply_step, T_step @ T, T)
+        # anneal thresholds for the next iteration
+        thre_new = torch.clamp(thre / cfg.dis_thre_update_rate,
+                               min=cfg.corr_dis_thre_min)
+
+        # freeze once done: the masked update equals the early exit
+        live = ~done
+        it = torch.where(live, it + 1, it)
+        T = torch.where(live, T_new, T)
+        thre = torch.where(live, thre_new, thre)
+        code = torch.where(live, code_new, code)
+        sigma2 = torch.where(live & apply_step, sigma2_new, sigma2)
+        info = torch.where(live & apply_step, info_new, info)
+        conf = torch.where(live, conf_new.to(f32), conf)
+        done = done | done_new
+
+    # re-orthonormalize the accumulated rotation
+    T = T.clone()
+    T[:3, :3] = se3.orthonormalize(T[:3, :3])
+    return RegResult(transform=T, information=info, sigma=torch.sqrt(sigma2),
+                     confidence=conf, process_code=code, iterations=it)

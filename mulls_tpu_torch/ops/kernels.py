@@ -1,0 +1,387 @@
+"""The three neighborhood kernels: hand-written CUDA for Hopper, each with
+its plain PyTorch version beside it.
+
+Port of ``mulls_tpu/ops/kernels.py`` (Pallas TPU kernels).  The CUDA
+sources live in ``mulls_tpu_torch/csrc``; they are compiled with ``nvcc``
+for ``sm_90a`` into one shared library with a plain C interface at first
+use (keyed on a hash of the sources, under ``build/mulls_tpu_torch_kernels``
+at the root of the checkout) and bound with ``ctypes``.
+
+* :func:`nn` — fused 1-NN (replaces ``nn_pallas``).
+* :func:`moments` — masked neighborhood feature sums, optionally with a
+  close sub-neighborhood (replaces ``moments_pallas``).
+* :func:`pca_moments` — query-centred PCA moments (replaces
+  ``pca_moments_pallas``).
+
+Dispatch: a wrapper takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
+launches in a plain integer attribute (``nn.launches`` etc.), incremented
+where the kernel is launched and nowhere else.
+
+The squared distance is ``((q-p)_x^2 + (q-p)_y^2) + (q-p)_z^2`` with every
+operation rounded on its own, in the kernels and in the plain versions
+alike, so both produce the same adjacency and argmin bit for bit (the
+reference's plain path expands ``|q|^2 + |p|^2 - 2 q.p``, whose rounding at
+metre-scale coordinates moves boundary points).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+_BIG = 3.0e38
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("nn.cu", "moments.cu", "pca_moments.cu")
+_HEADERS = ("common.cuh",)
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LIB_NAME = "libmulls_tpu_torch_kernels.so"
+MOMENTS_MAX_C = 16  # templated accumulator widths in csrc/moments.cu
+
+
+# --------------------------------------------------------------------------
+# build + load
+# --------------------------------------------------------------------------
+
+def build_root() -> Path:
+    """``build/mulls_tpu_torch_kernels`` at the root of the checkout."""
+    return Path(__file__).resolve().parents[2] / "build" / \
+        "mulls_tpu_torch_kernels"
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (PATH or CUDA_HOME)")
+
+
+def library_path() -> Path:
+    return build_root() / _digest() / _LIB_NAME
+
+
+def build_kernels() -> dict:
+    """Compile ``csrc/*.cu`` (one ``nvcc`` per source, all started
+    together) and link them into one shared library, unless the library
+    for these sources exists.  Returns ``{"path", "seconds", "built",
+    "log"}``; the log holds ``ptxas -v`` (registers, shared memory,
+    spills per kernel)."""
+    so = library_path()
+    log_path = so.parent / "build.log"
+    if so.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": log}
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    tmp = so.parent / f"tmp-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs = [tmp / (Path(s).stem + ".o") for s in _SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_SOURCES, objs)]
+    logs = []
+    failed = []
+    for src, proc in zip(_SOURCES, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp_so = tmp / _LIB_NAME
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    log = "\n".join(logs)
+    log_path.write_text(log)
+    os.replace(tmp_so, so)  # atomic: a concurrent build sees all or none
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"path": str(so), "seconds": time.perf_counter() - t0,
+            "built": True, "log": log}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    lib = ctypes.CDLL(build_kernels()["path"])
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.mulls_nn.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp]
+    lib.mulls_nn.restype = i
+    lib.mulls_moments.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
+                                  vp]
+    lib.mulls_moments.restype = i
+    lib.mulls_moments_max_c.argtypes = []
+    lib.mulls_moments_max_c.restype = i
+    lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    lib.mulls_pca_moments.restype = i
+    if lib.mulls_moments_max_c() != MOMENTS_MAX_C:
+        raise RuntimeError("csrc/moments.cu and kernels.py disagree on the "
+                           "largest feature width")
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {err})")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _dispatch(device: torch.device) -> bool:
+    """True: run the CUDA kernel; False: the plain version (CPU only)."""
+    if device.type == "cpu":
+        return False
+    if device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain path for device {device}")
+
+
+def reset_launch_counts() -> None:
+    for fn in (nn, moments, pca_moments):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"nn": nn.launches, "moments": moments.launches,
+            "pca_moments": pca_moments.launches}
+
+
+# --------------------------------------------------------------------------
+# squared distances, exactly as the kernels form them
+# --------------------------------------------------------------------------
+
+def sqdist_direct(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """[Q,3] x [P,3] -> [Q,P]: ((dx*dx + dy*dy) + dz*dz), d = q - p."""
+    dx = q[:, 0:1] - p[None, :, 0]
+    dy = q[:, 1:2] - p[None, :, 1]
+    dz = q[:, 2:3] - p[None, :, 2]
+    return dx * dx + dy * dy + dz * dz
+
+
+# --------------------------------------------------------------------------
+# 1-NN
+# --------------------------------------------------------------------------
+
+def nn_plain(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
+             p_mask: torch.Tensor, chunk: int = 2048
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch 1-NN over [chunk, P] distance blocks."""
+    idx_parts, d2_parts = [], []
+    for s in range(0, q_xyz.shape[0], chunk):
+        d2 = sqdist_direct(q_xyz[s:s + chunk], p_xyz)
+        d2 = torch.where(p_mask[None, :], d2, _BIG)
+        idx = torch.argmin(d2, dim=1)  # first minimum: lowest index wins
+        idx_parts.append(idx.to(torch.int32))
+        d2_parts.append(torch.gather(d2, 1, idx[:, None])[:, 0])
+    idx = torch.cat(idx_parts)
+    d2 = torch.where(q_mask, torch.cat(d2_parts), _BIG)
+    return idx, d2
+
+
+def nn(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
+       p_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused 1-NN: (idx [Q] int32, sqdist [Q] f32).  Invalid support is
+    excluded, invalid queries get the 3.0e38 sentinel, ties go to the lowest
+    support index (API parity with ``mulls_tpu.ops.kernels.nn_pallas``).
+
+    CUDA kernel: ``csrc/nn.cu`` (replaces ``nn_pallas``,
+    ``mulls_tpu/ops/kernels.py:90-150``); one thread per query over
+    shared-memory support tiles — bound by fp32 operations, see the
+    source note."""
+    dev = q_xyz.device
+    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
+    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
+    _check("q_mask", q_mask, torch.bool, (qn,), dev)
+    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (pn,), dev)
+    if pn < 1:
+        raise ValueError("nn: empty support")
+    if not _dispatch(dev):
+        return nn_plain(q_xyz, q_mask, p_xyz, p_mask)
+    lib = library()
+    idx = torch.empty((qn,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((qn,), dtype=torch.float32, device=dev)
+    _check_launch(lib.mulls_nn(_ptr(q_xyz), _ptr(q_mask), _ptr(p_xyz),
+                               _ptr(p_mask), qn, pn, _ptr(idx), _ptr(d2),
+                               _stream(q_xyz)), "nn")
+    nn.launches += 1
+    return idx, d2
+
+
+nn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# radius moments (adjacency @ features), optional close sub-neighborhood
+# --------------------------------------------------------------------------
+
+def moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                  p_mask: torch.Tensor, r2: torch.Tensor,
+                  feat_stack: torch.Tensor,
+                  close_r2: Optional[torch.Tensor] = None, chunk: int = 1024
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch ``adj @ feat_stack`` over [chunk, P] blocks."""
+    sums, csums = [], []
+    for s in range(0, q_xyz.shape[0], chunk):
+        d2 = sqdist_direct(q_xyz[s:s + chunk], p_xyz)
+        adj = p_mask[None, :] & (d2 <= r2[s:s + chunk, None])
+        sums.append(adj.to(torch.float32) @ feat_stack)
+        if close_r2 is not None:
+            close = adj & (d2 <= close_r2[s:s + chunk, None])
+            csums.append(close.to(torch.float32) @ feat_stack)
+    return (torch.cat(sums),
+            torch.cat(csums) if close_r2 is not None else None)
+
+
+def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
+            r2: torch.Tensor, feat_stack: torch.Tensor,
+            close_r2: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Fused neighborhood sums (API of ``moments_pallas``).
+
+    Args:
+      q_xyz: [Q,3] queries; r2: [Q] per-query squared radius.
+      p_xyz/p_mask: [P,3]/[P] support; invalid rows contribute nothing.
+      feat_stack: [P,C] per-support features, C <= 16.
+      close_r2: [Q] absolute squared close radius, or None; the second
+        output sums over d2 <= min(r2, close_r2).
+
+    Returns (sums [Q,C], close_sums [Q,C] or None).
+
+    CUDA kernel: ``csrc/moments.cu`` (replaces ``moments_pallas``,
+    ``mulls_tpu/ops/kernels.py:157-262``)."""
+    dev = q_xyz.device
+    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
+    cn = feat_stack.shape[1] if feat_stack.dim() == 2 else -1
+    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
+    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (pn,), dev)
+    _check("r2", r2, torch.float32, (qn,), dev)
+    _check("feat_stack", feat_stack, torch.float32, (pn, cn), dev)
+    if close_r2 is not None:
+        _check("close_r2", close_r2, torch.float32, (qn,), dev)
+    if not 1 <= cn <= MOMENTS_MAX_C:
+        raise ValueError(f"moments: feature width {cn} outside "
+                         f"[1, {MOMENTS_MAX_C}]")
+    if not _dispatch(dev):
+        return moments_plain(q_xyz, p_xyz, p_mask, r2, feat_stack, close_r2)
+    lib = library()
+    sums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+    csums = (torch.empty((qn, cn), dtype=torch.float32, device=dev)
+             if close_r2 is not None else None)
+    _check_launch(lib.mulls_moments(
+        _ptr(q_xyz), _ptr(r2), _ptr(close_r2), _ptr(p_xyz), _ptr(p_mask),
+        _ptr(feat_stack), qn, pn, cn, _ptr(sums), _ptr(csums),
+        _stream(q_xyz)), "moments")
+    moments.launches += 1
+    return sums, csums
+
+
+moments.launches = 0
+
+
+# --------------------------------------------------------------------------
+# PCA moments about each query point
+# --------------------------------------------------------------------------
+
+def pca_moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                      p_mask: torch.Tensor, r2: torch.Tensor,
+                      chunk: int = 512
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch query-centred moments over [chunk, P] blocks."""
+    cnt, s1, s2 = [], [], []
+    for s in range(0, q_xyz.shape[0], chunk):
+        qc = q_xyz[s:s + chunk]
+        d2 = sqdist_direct(qc, p_xyz)
+        a = (p_mask[None, :] & (d2 <= r2[s:s + chunk, None])).to(
+            torch.float32)
+        ex = p_xyz[None, :, 0] - qc[:, 0:1]
+        ey = p_xyz[None, :, 1] - qc[:, 1:2]
+        ez = p_xyz[None, :, 2] - qc[:, 2:3]
+        ax, ay, az = a * ex, a * ey, a * ez
+        cnt.append(a.sum(1))
+        s1.append(torch.stack([ax.sum(1), ay.sum(1), az.sum(1)], -1))
+        s2.append(torch.stack([(ax * ex).sum(1), (ax * ey).sum(1),
+                               (ax * ez).sum(1), (ay * ey).sum(1),
+                               (ay * ez).sum(1), (az * ez).sum(1)], -1))
+    return torch.cat(cnt), torch.cat(s1), torch.cat(s2)
+
+
+def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                p_mask: torch.Tensor, r2: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(count [Q], sum(p - q) [Q,3], sum((p - q)(p - q)^T) upper [Q,6])
+    over valid support within each query's radius — moments about the
+    query point; feed straight into ``cov_from_moments`` (covariance is
+    shift-invariant).
+
+    CUDA kernel: ``csrc/pca_moments.cu`` (replaces ``pca_moments_pallas``,
+    ``mulls_tpu/ops/kernels.py:269-347``)."""
+    dev = q_xyz.device
+    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
+    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
+    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (pn,), dev)
+    _check("r2", r2, torch.float32, (qn,), dev)
+    if not _dispatch(dev):
+        return pca_moments_plain(q_xyz, p_xyz, p_mask, r2)
+    lib = library()
+    cnt = torch.empty((qn,), dtype=torch.float32, device=dev)
+    s1 = torch.empty((qn, 3), dtype=torch.float32, device=dev)
+    s2 = torch.empty((qn, 6), dtype=torch.float32, device=dev)
+    _check_launch(lib.mulls_pca_moments(
+        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn, _ptr(cnt),
+        _ptr(s1), _ptr(s2), _stream(q_xyz)), "pca_moments")
+    pca_moments.launches += 1
+    return cnt, s1, s2
+
+
+pca_moments.launches = 0

@@ -1,0 +1,121 @@
+"""The port's host side against the JAX package: the numpy readers and
+writers (copies), the KITTI drift metrics (a copy), and the odometry CLI
+``python -m mulls_tpu_torch.apps.slam`` on a small scan folder, on the CPU."""
+
+import numpy as np
+import pytest
+
+import __graft_entry__ as ge
+from mulls_tpu.eval import kitti_metrics as jmetrics
+from mulls_tpu.io import kitti as jkitti
+from mulls_tpu.io.dataset import FolderDataset as JFolderDataset
+from mulls_tpu.io.pcd import read_pcd as j_read_pcd
+from mulls_tpu_torch.apps import slam as tslam
+from mulls_tpu_torch.eval import kitti_metrics as tmetrics
+from mulls_tpu_torch.io import kitti as tkitti
+from mulls_tpu_torch.io.dataset import FolderDataset as TFolderDataset
+from mulls_tpu_torch.io.pcd import read_pcd as t_read_pcd
+from mulls_tpu_torch.io.pcd import write_pcd as t_write_pcd
+
+N_SCANS = 3
+STEP_M = 0.6
+
+
+def _gt():
+    gt = np.tile(np.eye(4), (N_SCANS, 1, 1))
+    gt[:, 0, 3] = STEP_M * np.arange(N_SCANS)
+    return gt
+
+
+@pytest.fixture(scope="module")
+def scan_folder(tmp_path_factory):
+    """KITTI-style .bin scans of a synthetic world, a ground-truth pose file
+    and an identity calibration."""
+    root = tmp_path_factory.mktemp("kitti")
+    (root / "velodyne").mkdir()
+    cfg = ge._small_cfg()
+    rng = np.random.default_rng(3)
+    world = ge._make_world(3)
+    for k, T in enumerate(_gt()):
+        d = ge._render_scan(world, T, cfg, rng)
+        m = d["mask"]
+        rec = np.concatenate([d["xyz"][m], d["intensity"][m, None] / 255.0],
+                             1).astype(np.float32)
+        rec.tofile(root / "velodyne" / f"{k:06d}.bin")
+    jkitti.write_kitti_poses(str(root / "gt.txt"), _gt())
+    (root / "calib.txt").write_text(
+        "Tr: " + " ".join(str(v) for v in np.eye(4)[:3].ravel()) + "\n")
+    return root
+
+
+def test_folder_dataset_reads_what_the_reference_reads(scan_folder):
+    n_raw = ge._small_cfg().shapes.n_raw
+    j = JFolderDataset(str(scan_folder / "velodyne"), n_raw, native=False)
+    t = TFolderDataset(str(scan_folder / "velodyne"), n_raw)
+    assert len(t) == len(j) == N_SCANS
+    for a, b in zip(t, j):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_pcd_and_pose_files_round_trip_across_packages(tmp_path):
+    rng = np.random.default_rng(4)
+    xyz = rng.uniform(-50, 50, (500, 3)).astype(np.float32)
+    inten = rng.uniform(0, 255, 500).astype(np.float32)
+    t_write_pcd(str(tmp_path / "a.pcd"), xyz, inten)
+    a, b = t_read_pcd(str(tmp_path / "a.pcd")), j_read_pcd(
+        str(tmp_path / "a.pcd"))
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_array_equal(a["xyz"], xyz)
+    poses = np.tile(np.eye(4), (4, 1, 1))
+    poses[:, :3, 3] = rng.normal(size=(4, 3))
+    tkitti.write_kitti_poses(str(tmp_path / "p.txt"), poses)
+    np.testing.assert_array_equal(
+        tkitti.read_kitti_poses(str(tmp_path / "p.txt")),
+        jkitti.read_kitti_poses(str(tmp_path / "p.txt")))
+
+
+def test_kitti_drift_metrics_match_reference():
+    rng = np.random.default_rng(5)
+    n = 400
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, 0, 3] = 1.2 * np.arange(n)
+    gt[:, 1, 3] = 5.0 * np.sin(np.arange(n) / 40.0)
+    est = gt.copy()
+    est[:, :3, 3] += np.cumsum(0.003 * rng.normal(size=(n, 3)), 0)
+    j = jmetrics.summarize(jmetrics.compute_error(gt, est))
+    t = tmetrics.summarize(tmetrics.compute_error(gt, est))
+    assert t == j  # the same numpy code on the same inputs
+    assert tmetrics.ate_rmse(gt, est) == jmetrics.ate_rmse(gt, est)
+
+
+@pytest.mark.parametrize("flag", ["--loop_closure_detection_on=true",
+                                  "--output_map_pcd=map.pcd"])
+def test_slam_cli_refuses_what_is_not_ported(scan_folder, flag):
+    with pytest.raises(SystemExit, match="not ported"):
+        tslam.main(["--point_cloud_folder", str(scan_folder / "velodyne"),
+                    "--device", "cpu", flag])
+
+
+def test_slam_cli_runs_odometry_on_a_scan_folder(scan_folder, tmp_path,
+                                                 monkeypatch):
+    # the small shapes of the parity tests; the CLI's config is otherwise
+    # the default one
+    monkeypatch.setattr(tslam, "MullsConfig", ge._small_cfg)
+    out = tmp_path / "lo_lidar.txt"
+    rc = tslam.main([
+        "--point_cloud_folder", str(scan_folder / "velodyne"),
+        "--device", "cpu",
+        "--gt_body_pose_file_path", str(scan_folder / "gt.txt"),
+        "--calib_file_path", str(scan_folder / "calib.txt"),
+        "--output_lo_lidar_pose_file_path", str(out),
+        "--timing_report_file", str(tmp_path / "timing.txt")])
+    assert rc == 0
+    poses = tkitti.read_kitti_poses(str(out))
+    assert poses.shape == (N_SCANS, 4, 4)
+    # the odometry tracks the 0.6 m/frame ground truth to a few cm
+    np.testing.assert_allclose(poses[:, :3, 3], _gt()[:, :3, 3], atol=0.05)
+    timing = np.loadtxt(tmp_path / "timing.txt")
+    assert timing.shape == (N_SCANS, 4) and np.all(timing[:, :3] > 0)

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a card: the CUDA
+kernels have no CPU mode.  The file imports neither JAX nor the JAX
+package, so on a machine with a card it runs without the suite's
+conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The kernels form squared distances exactly as the plain versions do, so
+nearest-neighbor indices and distances and all counts are compared for
+equality; other sums differ only by summation order (stated below)."""
+
+import numpy as np
+import pytest
+import torch
+
+from mulls_tpu_torch.ops import kernels
+from mulls_tpu_torch.ops.neighbors import cov_from_moments
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def _clouds(dev, seed, qn, pn, valid=0.9, extent=40.0):
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-extent, extent, (qn, 3)).astype(np.float32)
+    p = rng.uniform(-extent, extent, (pn, 3)).astype(np.float32)
+    qm = rng.uniform(size=qn) < valid
+    pm = rng.uniform(size=pn) < valid
+    return [torch.from_numpy(a).to(dev) for a in (q, qm, p, pm)]
+
+
+# sizes below, at and above the kernels' block (64) and tile (256 / 1024)
+_SIZES = [(1, 1), (63, 257), (64, 1024), (700, 5000), (1200, 8192)]
+
+
+@pytest.mark.parametrize("qn,pn", _SIZES)
+def test_nn_kernel_equals_plain(dev, qn, pn):
+    q, qm, p, pm = _clouds(dev, 1, qn, pn)
+    idx, d2 = kernels.nn(q, qm, p, pm)
+    ridx, rd2 = kernels.nn_plain(q, qm, p, pm)
+    assert idx.dtype == torch.int32 and d2.dtype == torch.float32
+    assert torch.equal(d2, rd2)
+    v = qm & (rd2 < 1e30)
+    assert torch.equal(idx[v], ridx[v])
+
+
+def test_nn_kernel_with_no_valid_support(dev):
+    q, qm, p, _ = _clouds(dev, 2, 100, 300)
+    pm = torch.zeros(300, dtype=torch.bool, device=dev)
+    idx, d2 = kernels.nn(q, qm, p, pm)
+    assert torch.all(d2 > 1e30)
+    assert torch.all(idx == 0)  # the reference's argmin over +BIG
+
+
+@pytest.mark.parametrize("c", [1, 6, 16])
+@pytest.mark.parametrize("close", [False, True])
+def test_moments_kernel_equals_plain(dev, c, close):
+    q, _, p, pm = _clouds(dev, 3, 700, 5000, extent=20.0)
+    r2 = torch.full((700,), 9.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    feats = torch.rand((5000, c), generator=g, device=dev)
+    feats[:, 0] = 1.0  # a count column: exact on both sides
+    cr2 = 0.5 * r2 if close else None
+    s, cs = kernels.moments(q, p, pm, r2, feats, cr2)
+    rs, rcs = kernels.moments_plain(q, p, pm, r2, feats, cr2)
+    assert torch.equal(s[:, 0], rs[:, 0])
+    # fp32 sums of ~100 terms in [0, 1) in another order
+    assert torch.allclose(s, rs, rtol=1e-5, atol=1e-4)
+    if close:
+        assert torch.equal(cs[:, 0], rcs[:, 0])
+        assert torch.allclose(cs, rcs, rtol=1e-5, atol=1e-4)
+    else:
+        assert cs is None and rcs is None
+
+
+def test_moments_kernel_rejects_wide_features(dev):
+    q, _, p, pm = _clouds(dev, 5, 10, 20)
+    with pytest.raises(ValueError):
+        kernels.moments(q, p, pm, torch.ones(10, device=dev),
+                        torch.ones((20, kernels.MOMENTS_MAX_C + 1),
+                                   device=dev))
+
+
+@pytest.mark.parametrize("qn,pn", _SIZES)
+def test_pca_moments_kernel_equals_plain(dev, qn, pn):
+    q, _, p, pm = _clouds(dev, 6, qn, pn, extent=10.0)
+    r2 = torch.full((qn,), 4.0, device=dev)
+    ck, sk, ok = kernels.pca_moments(q, p, pm, r2)
+    cp, sp, op = kernels.pca_moments_plain(q, p, pm, r2)
+    assert torch.equal(ck, cp)
+    # covariances of 2 m neighborhoods (~1 m^2), both sides centred at the
+    # query and summed in fp32 in another order: a few ulp of ~1 m^2
+    assert torch.allclose(cov_from_moments(ck, sk, ok),
+                          cov_from_moments(cp, sp, op), rtol=1e-6, atol=1e-6)
+
+
+def test_pca_moments_kernel_keeps_plane_thickness_far_out(dev):
+    """The smallest eigenvalue of a 2 mm-thick plane 100 m out, which the
+    normals and the classification read: sums centred anywhere but near
+    the query would lose it in fp32."""
+    rng = np.random.default_rng(9)
+    n = 4000
+    p = np.stack([100.0 + rng.uniform(-3, 3, n), rng.uniform(-3, 3, n),
+                  0.002 * rng.normal(size=n)], 1).astype(np.float32)
+    p = torch.from_numpy(p).to(dev)
+    q = p[:200].contiguous()
+    cnt, sx, so = kernels.pca_moments(q, p, torch.ones(n, dtype=torch.bool,
+                                                       device=dev),
+                                      torch.full((200,), 1.0, device=dev))
+    cov = cov_from_moments(cnt, sx, so).double().cpu()
+    lam3 = torch.linalg.eigvalsh(cov)[:, 0]
+    # true lambda_3 is 4e-6 m^2; sampling spreads it by well under 2e-6
+    assert torch.all((lam3 - 4e-6).abs() < 2e-6)
+
+
+def test_cuda_tensors_launch_the_kernels_and_count_once(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("nn_plain", "moments_plain", "pca_moments_plain"):
+        monkeypatch.setattr(kernels, name, refuse)
+    q, qm, p, pm = _clouds(dev, 7, 200, 900)
+    r2 = torch.full((200,), 9.0, device=dev)
+    kernels.reset_launch_counts()
+    kernels.nn(q, qm, p, pm)
+    kernels.moments(q, p, pm, r2, torch.ones((900, 1), device=dev))
+    kernels.pca_moments(q, p, pm, r2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"nn": 1, "moments": 1,
+                                       "pca_moments": 1}
+
+
+def test_wrappers_refuse_mixed_devices(dev):
+    q, qm, p, pm = _clouds(dev, 8, 20, 40)
+    with pytest.raises(ValueError):
+        kernels.nn(q, qm, p.cpu(), pm.cpu())
