@@ -10,14 +10,19 @@ Phases (each prints its own line; any failure exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card, on
               inputs shaped like the main path's calls (taken from the
               synthetic world below), with the tolerances stated beside
-              each check; times the kernel, the plain version and, where
-              one exists, a library yardstick (timed here only).
+              each check, and two launches against each other (same
+              bits); nn also as one grouped launch for the five ICP
+              classes against five single launches.  Times the kernel on
+              the device (torch.profiler) and per call with CUDA events,
+              the plain version and, where one exists, a library
+              yardstick (timed here only).
 4. main     — ``OdometryPipeline`` at full width (``MullsConfig()``
               defaults: n_raw 131072, n_unground 20480) over ~32 frames of
               a synthetic world (>= 100k valid points per scan, made with
               numpy from a fixed seed).  Checks that each kernel launched,
-              that >= 90 % of the frames after the first registered with
-              code 1, and the end translation error against ground truth.
+              that nn launched at most 30 times a frame, that >= 90 % of
+              the frames after the first registered with code 1, and the
+              end translation error against ground truth.
 5. agree    — the port on the card against the port's plain PyTorch paths
               on the CPU, same scans and same draws, at a small width:
               equal codes and per-frame motion within 2 cm / 0.2 deg.
@@ -158,6 +163,34 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int) -> tuple:
+    """(device ms per call, device operations per call) of ``fn`` under
+    ``torch.profiler``: the kernels' own time, without the host's launch
+    gaps that CUDA events between calls of a short kernel also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return (sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters,
+            len(kern) / iters)
+
+
+def same_bits(fn) -> bool:
+    """Two calls of ``fn`` give identical tensors."""
+    import torch
+    a, b = leaves(fn()), leaves(fn())
+    return len(a) == len(b) and all(torch.equal(u, v)
+                                    for (_, u), (_, v) in zip(a, b))
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -190,39 +223,74 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
 
     rows = []
 
-    # --- nn at the ICP shapes (facade 1200 x 8192, ground 800 x 6144):
-    # sources jittered by 5 cm against a different subset of the scan
-    for qn, pn in ((1200, 8192), (800, 6144)):
+    # --- nn at the ICP shapes: sources jittered by 5 cm against a different
+    # subset of the scan.  The kernel forms d2 exactly as the plain version
+    # does and merges exactly, so indices and distances are equal bit for
+    # bit (tolerance 0), and two launches give the same bits.
+    def nn_check(name, got, want):
+        for k, ((ik, dk), (ip, dp)) in enumerate(zip(got, want)):
+            if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+                bad = int((ik != ip).sum()) + int((dk != dp).sum())
+                raise AssertionError(f"{name} problem {k}: {bad} indices or "
+                                     f"distances differ from the plain "
+                                     f"version")
+
+    icp_shapes = ((800, 6144), (400, 1536), (1200, 8192), (200, 1024),
+                  (200, 512))  # ground, pillar, facade, beam, roof
+    probs = {}
+    for qn, pn in icp_shapes:
         q, qm, _ = cloud(qn, 0.9, jitter=0.05)
         p, pm, _ = cloud(pn, 0.9)
-        idx_k, d2_k = kernels.nn(q, qm, p, pm)
-        idx_p, d2_p = kernels.nn_plain(q, qm, p, pm)
-        torch.cuda.synchronize()
-        # tolerance: the kernel forms d2 exactly as the plain version does,
-        # so d2 agrees to fp32 rounding (1e-6 relative) and the chosen
-        # support point's distance equals the plain one's
-        v = qm
-        err = float((d2_k[v] - d2_p[v]).abs().max())
-        ok = torch.allclose(d2_k[v], d2_p[v], rtol=1e-6, atol=1e-6)
-        dk = ((q - p[idx_k.long()]) ** 2).sum(-1)
-        dp = ((q - p[idx_p.long()]) ** 2).sum(-1)
-        ok = ok and torch.allclose(dk[v], dp[v], rtol=1e-6, atol=1e-6)
-        same_idx = float((idx_k == idx_p)[v].float().mean())
-        if not ok:
-            raise AssertionError(f"nn {qn}x{pn}: max |d2 err| {err}")
-        ms = time_ms(lambda: kernels.nn(q, qm, p, pm), 50)
-        plain = time_ms(lambda: kernels.nn_plain(q, qm, p, pm), 10)
+        probs[(qn, pn)] = (q, qm, p, pm)
+    for qn, pn in ((1200, 8192), (800, 6144)):
+        pr = probs[(qn, pn)]
+        nn_check(f"nn {qn}x{pn}", [kernels.nn(*pr)], [kernels.nn_plain(*pr)])
+        if not same_bits(lambda: kernels.nn(*pr)):
+            raise AssertionError(f"nn {qn}x{pn}: two launches differ")
+        ms, ops = device_ms(lambda: kernels.nn(*pr), 50)
+        ev = time_ms(lambda: kernels.nn(*pr), 50)
+        plain = time_ms(lambda: kernels.nn_plain(*pr), 10)
+        q, _, p, pm = pr
         p_far = torch.where(pm[:, None], p, torch.full_like(p, 1e18))
         lib = time_ms(lambda: torch.cdist(q, p_far).min(dim=1), 10)
         flops, nbytes = 9.0 * qn * pn, qn * 13 + pn * 13 + qn * 8
         b, by = bound_ms(flops, nbytes)
-        print(f"[kernels] nn {qn}x{pn}: max|d2 err| {err:.3g} m^2, same "
-              f"index {same_idx:.4f}, kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, cdist+min {lib:.4f} ms, bound {b:.5f} ms "
-              f"({by})", flush=True)
-        rows.append({"name": "nn", "shape": f"{qn}x{pn}", "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": b, "bound_by": by})
+        print(f"[kernels] nn {qn}x{pn}: equal to the plain version bit for "
+              f"bit, same bits twice; kernel {ms:.4f} ms on the device "
+              f"({ops:.0f} launch per call; {ev:.4f} ms per call with CUDA "
+              f"events), plain {plain:.4f} ms, cdist+min {lib:.4f} ms, "
+              f"bound {b:.5f} ms ({by})", flush=True)
+        rows.append({"name": "nn", "shape": f"{qn}x{pn}", "max_abs_err": 0.0,
+                     "ms": ms, "event_ms": ev, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b, "bound_by": by})
+
+    # --- nn_grouped: one launch for one ICP iteration's five classes,
+    # against the same five problems as five kernels.nn launches
+    group = [probs[s] for s in icp_shapes]
+    nn_check("nn_grouped", kernels.nn_grouped(group),
+             kernels.nn_grouped_plain(group))
+    if not same_bits(lambda: kernels.nn_grouped(group)):
+        raise AssertionError("nn_grouped: two launches differ")
+    ms, ops = device_ms(lambda: kernels.nn_grouped(group), 200)
+    ev = time_ms(lambda: kernels.nn_grouped(group), 200)
+    five, five_ops = device_ms(lambda: [kernels.nn(*pr) for pr in group], 50)
+    five_ev = time_ms(lambda: [kernels.nn(*pr) for pr in group], 50)
+    plain = time_ms(lambda: kernels.nn_grouped_plain(group), 10)
+    pairs = sum(qn * pn for qn, pn in icp_shapes)
+    nbytes = sum(qn * 13 + pn * 13 + qn * 8 for qn, pn in icp_shapes)
+    b, by = bound_ms(9.0 * pairs, nbytes)
+    shape = " + ".join(f"{qn}x{pn}" for qn, pn in icp_shapes)
+    print(f"[kernels] nn_grouped {shape} ({pairs:.3g} pairs): equal to the "
+          f"plain version bit for bit, same bits twice; one grouped launch "
+          f"{ms:.4f} ms on the device ({ops:.0f} launch per call; {ev:.4f} "
+          f"ms per call with CUDA events); five nn launches {five:.4f} ms on "
+          f"the device ({five_ops:.0f} launches; {five_ev:.4f} ms with CUDA "
+          f"events); plain {plain:.4f} ms, library none, bound {b:.5f} ms "
+          f"({by})", flush=True)
+    rows.append({"name": "nn_grouped", "shape": shape, "max_abs_err": 0.0,
+                 "ms": ms, "event_ms": ev, "five_nn_ms": five,
+                 "five_nn_event_ms": five_ev, "plain_ms": plain,
+                 "library_ms": None, "bound_ms": b, "bound_by": by})
 
     # --- moments: the NCC descriptor's two passes, 4096 x 20480
     p, pm, psel = cloud(20480, 0.95)
@@ -251,7 +319,12 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     if not (exact_ok and torch.allclose(s2k, s2p, rtol=1e-5, atol=1e-4)
             and torch.allclose(c2k, c2p, rtol=1e-5, atol=1e-4)):
         raise AssertionError(f"moments: counts differ or max err {err}")
-    ms = (time_ms(lambda: kernels.moments(q, p, pm, r2, ones), 20)
+    if not (same_bits(lambda: kernels.moments(q, p, pm, r2, ones))
+            and same_bits(lambda: kernels.moments(q, p, pm, r2s, f6, cr2))):
+        raise AssertionError("moments: two launches differ")
+    ms = (device_ms(lambda: kernels.moments(q, p, pm, r2, ones), 20)[0]
+          + device_ms(lambda: kernels.moments(q, p, pm, r2s, f6, cr2), 20)[0])
+    ev = (time_ms(lambda: kernels.moments(q, p, pm, r2, ones), 20)
           + time_ms(lambda: kernels.moments(q, p, pm, r2s, f6, cr2), 20))
     plain = (time_ms(lambda: kernels.moments_plain(q, p, pm, r2, ones), 5)
              + time_ms(lambda: kernels.moments_plain(q, p, pm, r2s, f6, cr2),
@@ -263,12 +336,15 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     nbytes = 2 * (4096 * 16 + 20480 * 13) + 20480 * 28 + 4096 * (4 + 48)
     b, by = bound_ms(flops, nbytes)
     print(f"[kernels] moments 4096x20480 (C=1, then C=6 + close): counts "
-          f"exact, max|err| {err:.3g}, kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, library none, bound {b:.5f} ms ({by})",
-          flush=True)
+          f"exact, max|err| {err:.3g}, same bits twice; kernel {ms:.4f} ms "
+          f"on the device ({ev:.4f} ms with CUDA events), plain "
+          f"{plain:.4f} ms, library none, bound {b:.5f} ms ({by}); hits "
+          f"per query {hits1 / 4096:.1f} (pass 1), {hits2 / 4096:.1f} "
+          f"(pass 2)", flush=True)
     rows.append({"name": "moments", "shape": "2 x 4096x20480",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "library_ms": None, "bound_ms": b, "bound_by": by})
+                 "max_abs_err": err, "ms": ms, "event_ms": ev,
+                 "plain_ms": plain, "library_ms": None, "bound_ms": b,
+                 "bound_by": by})
 
     # --- pca_moments: the frame's PCA, 10240 queries (subset of the
     # support) x 20480
@@ -298,7 +374,10 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     if not (torch.equal(ck, cp) and err <= 1e-6 and lam_ok):
         raise AssertionError(f"pca_moments: counts differ, cov err {err} "
                              f"or lambda_3 relative err {lam_err}")
-    ms = time_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)
+    if not same_bits(lambda: kernels.pca_moments(q, p, pm, r2)):
+        raise AssertionError("pca_moments: two launches differ")
+    ms = device_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)[0]
+    ev = time_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)
     plain = time_ms(lambda: kernels.pca_moments_plain(q, p, pm, r2), 3)
     hits = float(ck.sum())
     flops = 10.0 * 10240 * 20480 + 15.0 * hits
@@ -307,11 +386,14 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     print(f"[kernels] pca_moments 10240x20480: counts exact, max|cov err| "
           f"{err:.3g} m^2, max lambda_3 relative err {lam_err:.3g} "
           f"({int(full.sum())} queries, median lambda_3 "
-          f"{float(lam_p[full].median()):.3g} m^2), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library none, bound {b:.5f} ms ({by})", flush=True)
+          f"{float(lam_p[full].median()):.3g} m^2), same bits twice; "
+          f"kernel {ms:.4f} ms on the device ({ev:.4f} ms with CUDA "
+          f"events), plain {plain:.4f} ms, library none, bound {b:.5f} ms "
+          f"({by})", flush=True)
     rows.append({"name": "pca_moments", "shape": "10240x20480",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "library_ms": None, "bound_ms": b, "bound_by": by})
+                 "max_abs_err": err, "ms": ms, "event_ms": ev,
+                 "plain_ms": plain, "library_ms": None, "bound_ms": b,
+                 "bound_by": by})
     return rows
 
 
@@ -351,7 +433,9 @@ def main_phase(frames: list, gt: np.ndarray, dev) -> dict:
         print(f"[main] frame {i}: code {c}", flush=True)
     print(f"[main] end translation error {end_err:.4f} m over {dist:.1f} m "
           f"({100.0 * end_err / max(dist, 1e-9):.3f} %)", flush=True)
-    print(f"[main] launches {launches}", flush=True)
+    print(f"[main] launches {launches}: nn {launches['nn'] / n:.2f} per "
+          f"frame ({launches['nn_grouped'] / n:.2f} of them grouped)",
+          flush=True)
     return {"frames": n, "seconds": wall, "fps": n / wall, "codes": codes,
             "bad": bad, "end_err_m": end_err, "dist_m": dist,
             "launches": launches, "sigmas": res.sigmas}
@@ -790,13 +874,15 @@ def main() -> int:
     for r in rows:
         by_name.setdefault(r["name"], []).append(r)
     replaces = {"nn": "mulls_tpu/ops/kernels.py:111",
+                "nn_grouped": "mulls_tpu/ops/kernels.py:111",
                 "moments": "mulls_tpu/ops/kernels.py:197",
                 "pca_moments": "mulls_tpu/ops/kernels.py:317"}
     for name, rs in by_name.items():
         r = rs[0]  # the first (largest) main-path shape
         kernels_line.append({
             "name": name, "route": "cuda",
-            "source": f"mulls_tpu_torch/csrc/{name}.cu",
+            "source": "mulls_tpu_torch/csrc/"
+                      f"{'nn' if name == 'nn_grouped' else name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(x["max_abs_err"] for x in rs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -808,6 +894,11 @@ def main() -> int:
         if k <= 0:
             problems.append(f"kernel {name} was not launched on the main "
                             f"path")
+    # one grouped launch per ICP iteration and one for dynamic removal:
+    # ~23 a frame on this run, 115.5 when each class launched on its own
+    if launches["nn"] > 30 * main_res["frames"]:
+        problems.append(f"nn launched {launches['nn']} times in "
+                        f"{main_res['frames']} frames, above 30 a frame")
     after_first = main_res["codes"][1:]
     healthy = sum(1 for c in after_first if c == 1)
     if healthy < 0.9 * len(after_first):

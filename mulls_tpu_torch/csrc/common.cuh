@@ -1,11 +1,12 @@
 // Shared pieces of the brute-force neighborhood kernels (nn.cu,
-// moments.cu, pca_moments.cu): the support-tile staging and the squared
-// distance.
+// moments.cu, pca_moments.cu): the squared distance, the support-tile
+// staging and the asynchronous copies that feed it.
 //
-// Every kernel here is one thread per query walking the whole support set
-// through shared-memory tiles.  Support is staged as float4 (x, y, z,
-// valid) so that one 16-byte broadcast load per point feeds every thread
-// of the block.
+// Support is staged in shared memory as float4 (x, y, z, valid) so that
+// one 16-byte load per point feeds every thread that reads it.  nn.cu and
+// moments.cu fill the x, y, z words with cp.async (4 bytes each: the
+// [P, 3] rows and the callers' views give no 16-byte alignment) and write
+// the valid word from a mask byte loaded into a register one stage ahead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +41,66 @@ __device__ __forceinline__ void load_support_tile(
     tile[t] = make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2],
                           p_mask[j] ? 1.0f : 0.0f);
   }
+}
+
+// --- asynchronous global -> shared copies (cp.async, sm_80 and later) ---
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copies of the x, y, z words of support rows [base, base + len)
+// into tile[0, len); the w words are written by store_valid.
+__device__ __forceinline__ void stage_xyz_async(float4* tile,
+                                                const float* __restrict__ p,
+                                                int base, int len) {
+  const float* src = p + 3 * static_cast<size_t>(base);
+  for (int e = threadIdx.x; e < 3 * len; e += blockDim.x) {
+    const int t = e / 3;
+    cp_async4(reinterpret_cast<float*>(&tile[t]) + (e - 3 * t), src + e);
+  }
+}
+
+// Issues the copies of the feature rows [base, base + len) of a [P, C]
+// array into rows of `stride` floats (stride >= C).
+template <int C>
+__device__ __forceinline__ void stage_rows_async(float* rows,
+                                                 const float* __restrict__ f,
+                                                 int stride, int base,
+                                                 int len) {
+  const float* src = f + static_cast<size_t>(base) * C;
+  for (int e = threadIdx.x; e < C * len; e += blockDim.x) {
+    const int t = e / C;
+    cp_async4(rows + t * stride + (e - C * t), src + e);
+  }
+}
+
+// Mask bytes of rows [base, base + len), one row per thread (blockDim.x >=
+// len): loaded into a register before a stage is computed, stored as the
+// w words after it, so the load's latency hides behind the compute.
+__device__ __forceinline__ uint8_t load_valid(
+    const uint8_t* __restrict__ p_mask, int base, int len) {
+  const int t = static_cast<int>(threadIdx.x);
+  return t < len ? p_mask[base + t] : uint8_t{0};
+}
+
+__device__ __forceinline__ void store_valid(float4* tile, uint8_t m,
+                                            int len) {
+  const int t = static_cast<int>(threadIdx.x);
+  if (t < len) tile[t].w = m ? 1.0f : 0.0f;
 }
 
 inline int blocks_for(int n, int threads) {

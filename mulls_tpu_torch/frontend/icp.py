@@ -2,8 +2,9 @@
 ``mm_lls_icp`` in ``mulls_tpu/frontend/icp.py`` (reference
 `cregistration.hpp:1114-1440`).
 
-* correspondences: brute-force 1-NN per feature class through the ``nn``
-  CUDA kernel (`determine_corres` parity: candidate gate at 2.5x threshold,
+* correspondences: brute-force 1-NN of every feature class in one grouped
+  launch of the ``nn`` CUDA kernel per iteration (`determine_corres`
+  parity: candidate gate at 2.5x threshold,
   one-source-per-target duplicate rejection, annealed per-class distance
   thresholds, normal/principal-direction consistency gate —
   `cregistration.hpp:1701-1835`)
@@ -32,7 +33,7 @@ from mulls_tpu_torch.config import RegConfig
 from mulls_tpu_torch.core import se3
 from mulls_tpu_torch.core.cloud import FeatureCloud, masked_max, masked_min
 from mulls_tpu_torch.core.tree import Struct
-from mulls_tpu_torch.ops.neighbors import (nearest_neighbor,
+from mulls_tpu_torch.ops.neighbors import (nearest_neighbor_grouped,
                                            normal_shooting_neighbor)
 
 CLASS_ORDER = ("ground", "pillar", "facade", "beam", "roof", "vertex")
@@ -71,17 +72,14 @@ class _Corr(NamedTuple):
     sqdist: torch.Tensor  # [S]
 
 
-def _find_corres(s_xyz, s_dir, s_mask, target: FeatureCloud, dis_thre,
-                 cos_bearing: float, normal_check: bool,
-                 duplicate_check: bool = True,
-                 normal_shooting: bool = False) -> _Corr:
-    """determine_corres parity (`cregistration.hpp:1701-1835`)."""
+def _find_corres(found, s_xyz, s_dir, s_mask, target: FeatureCloud,
+                 dis_thre, cos_bearing: float, normal_check: bool,
+                 duplicate_check: bool = True) -> _Corr:
+    """determine_corres parity (`cregistration.hpp:1701-1835`) on the
+    candidates ``found = (idx, d2)`` of the 1-NN or normal-shooting search
+    of ``s_xyz`` in ``target``."""
     t_cap = target.capacity
-    if normal_shooting:
-        idx, d2 = normal_shooting_neighbor(s_xyz, s_dir, s_mask, target.xyz,
-                                           target.mask, 2.5 * dis_thre)
-    else:
-        idx, d2 = nearest_neighbor(s_xyz, s_mask, target.xyz, target.mask)
+    idx, d2 = found
     idx = idx.to(torch.int64)
     cand = s_mask & (d2 <= (2.5 * dis_thre) ** 2)
     if duplicate_check:
@@ -235,22 +233,35 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
     info = eye6
     conf = torch.tensor(1.0, dtype=f32, device=dev)
 
+    shooting = [n for n in used if cfg.normal_shooting_on and _PLANAR[n]]
     for k in range(max_iter):
-        corrs = {}
-        s_pts = {}
-        for ci, name in enumerate(used):
+        # transform every class, then ONE grouped 1-NN launch for the
+        # classes that do not use normal shooting
+        s_pts, s_dirs, s_masks = {}, {}, {}
+        for name in used:
             sc = source[name]
             s_xyz = se3.transform_points(T, sc.xyz)
-            s_dir = se3.rotate_vectors(T, sc.normal)
             s_mask = sc.mask
             if tmin is not None:
                 s_mask = s_mask & torch.all((s_xyz >= tmin) & (s_xyz <= tmax),
                                             dim=-1)
-            corrs[name] = _find_corres(
-                s_xyz, s_dir, s_mask, target[name], thre[ci], cos_bearing,
-                normal_check=(name != "vertex"),
-                normal_shooting=(cfg.normal_shooting_on and _PLANAR[name]))
             s_pts[name] = s_xyz
+            s_dirs[name] = se3.rotate_vectors(T, sc.normal)
+            s_masks[name] = s_mask
+        nearest = [n for n in used if n not in shooting]
+        found = dict(zip(nearest, nearest_neighbor_grouped(
+            [(s_pts[n], s_masks[n], target[n].xyz, target[n].mask)
+             for n in nearest])))
+        corrs = {}
+        for ci, name in enumerate(used):
+            if name in shooting:
+                found[name] = normal_shooting_neighbor(
+                    s_pts[name], s_dirs[name], s_masks[name],
+                    target[name].xyz, target[name].mask, 2.5 * thre[ci])
+            corrs[name] = _find_corres(
+                found[name], s_pts[name], s_dirs[name], s_masks[name],
+                target[name], thre[ci], cos_bearing,
+                normal_check=(name != "vertex"))
 
         cnt = {n: torch.sum(corrs[n].valid) for n in used}
         total = sum(cnt.values())

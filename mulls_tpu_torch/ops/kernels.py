@@ -7,7 +7,8 @@ for ``sm_90a`` into one shared library with a plain C interface at first
 use (keyed on a hash of the sources, under ``build/mulls_tpu_torch_kernels``
 at the root of the checkout) and bound with ``ctypes``.
 
-* :func:`nn` — fused 1-NN (replaces ``nn_pallas``).
+* :func:`nn_grouped` — fused 1-NN for a group of problems in one launch
+  (replaces ``nn_pallas``); :func:`nn` is the group of one.
 * :func:`moments` — masked neighborhood feature sums, optionally with a
   close sub-neighborhood (replaces ``moments_pallas``).
 * :func:`pca_moments` — query-centred PCA moments (replaces
@@ -16,7 +17,14 @@ at the root of the checkout) and bound with ``ctypes``.
 Dispatch: a wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (``nn.launches`` etc.), incremented
-where the kernel is launched and nowhere else.
+where the kernel is launched and nowhere else.  ``nn.launches`` counts every
+launch of the nn kernel, ``nn_grouped.launches`` those made for
+:func:`nn_grouped`.
+
+The nn and moments kernels merge across support chunks through scratch
+kept per device and stream (:func:`_scratch`): merge words and arrival
+counters that every launch leaves as it found them, so no launch needs a
+memset.
 
 The squared distance is ``((q-p)_x^2 + (q-p)_y^2) + (q-p)_z^2`` with every
 operation rounded on its own, in the kernels and in the plain versions
@@ -35,7 +43,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,7 +55,11 @@ _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libmulls_tpu_torch_kernels.so"
+# the kernels' geometry (checked against csrc/ when the library loads)
+NN_MAX_GROUP = 8  # problems in one nn launch
+NN_TILE_Q, NN_CHUNK = 128, 1024  # queries x support points per nn block
 MOMENTS_MAX_C = 16  # templated accumulator widths in csrc/moments.cu
+MOMENTS_TILE_Q, MOMENTS_CHUNK = 128, 1024
 
 
 # --------------------------------------------------------------------------
@@ -132,20 +144,49 @@ def build_kernels() -> dict:
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     lib = ctypes.CDLL(build_kernels()["path"])
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.mulls_nn.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp]
-    lib.mulls_nn.restype = i
+    vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.mulls_nn_grouped.argtypes = [i, vp, vp, vp, vp, vp]
+    lib.mulls_nn_grouped.restype = i
+    lib.mulls_nn_empty_key.argtypes = []
+    lib.mulls_nn_empty_key.restype = ctypes.c_ulonglong
     lib.mulls_moments.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
-                                  vp]
+                                  vp, vp, vp, vp]
     lib.mulls_moments.restype = i
-    lib.mulls_moments_max_c.argtypes = []
-    lib.mulls_moments_max_c.restype = i
     lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
     lib.mulls_pca_moments.restype = i
-    if lib.mulls_moments_max_c() != MOMENTS_MAX_C:
-        raise RuntimeError("csrc/moments.cu and kernels.py disagree on the "
-                           "largest feature width")
+    for fn, want in ((lib.mulls_nn_geometry,
+                      (NN_MAX_GROUP, NN_TILE_Q, NN_CHUNK)),
+                     (lib.mulls_moments_geometry,
+                      (MOMENTS_MAX_C, MOMENTS_TILE_Q, MOMENTS_CHUNK))):
+        fn.argtypes, fn.restype = [ip, ip, ip], None
+        got = [ctypes.c_int() for _ in want]
+        fn(*[ctypes.byref(g) for g in got])
+        if tuple(g.value for g in got) != want:
+            raise RuntimeError(f"csrc/ and kernels.py disagree on the "
+                               f"geometry of {fn.__name__}: {want} here")
     return lib
+
+
+_scratch_by_stream: dict = {}
+
+
+def _scratch(t: torch.Tensor, n_keys: int, n_counters: int):
+    """(merge words int64 [>= n_keys], arrival counters int32
+    [>= n_counters]) for the current stream of ``t``'s device.  Every launch
+    leaves them as made (words at ``mulls_nn_empty_key()``, counters 0), so
+    they are filled only when made or grown; kernels on one stream run in
+    order, so they never share them."""
+    key = (t.device.index, _stream(t).value)
+    keys, counters = _scratch_by_stream.get(key, (None, None))
+    if keys is None or keys.numel() < n_keys:
+        empty = library().mulls_nn_empty_key()
+        keys = torch.full((max(n_keys, 1 << 14),), empty, dtype=torch.int64,
+                          device=t.device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros((max(n_counters, 1 << 10),), dtype=torch.int32,
+                               device=t.device)
+    _scratch_by_stream[key] = (keys, counters)
+    return keys, counters
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -185,13 +226,13 @@ def _dispatch(device: torch.device) -> bool:
 
 
 def reset_launch_counts() -> None:
-    for fn in (nn, moments, pca_moments):
+    for fn in (nn, nn_grouped, moments, pca_moments):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"nn": nn.launches, "moments": moments.launches,
-            "pca_moments": pca_moments.launches}
+    return {"nn": nn.launches, "nn_grouped": nn_grouped.launches,
+            "moments": moments.launches, "pca_moments": pca_moments.launches}
 
 
 # --------------------------------------------------------------------------
@@ -215,7 +256,7 @@ def nn_plain(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch 1-NN over [chunk, P] distance blocks."""
     idx_parts, d2_parts = [], []
-    for s in range(0, q_xyz.shape[0], chunk):
+    for s in range(0, max(q_xyz.shape[0], 1), chunk):  # Q = 0: one block
         d2 = sqdist_direct(q_xyz[s:s + chunk], p_xyz)
         d2 = torch.where(p_mask[None, :], d2, _BIG)
         idx = torch.argmin(d2, dim=1)  # first minimum: lowest index wins
@@ -226,37 +267,101 @@ def nn_plain(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
     return idx, d2
 
 
+NnProblem = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def nn_grouped_plain(problems: Sequence[NnProblem]
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`nn_plain` over each problem of the group."""
+    return [nn_plain(*pr) for pr in problems]
+
+
+def _check_nn(problem: NnProblem, dev: torch.device, tag: str) -> None:
+    q_xyz, q_mask, p_xyz, p_mask = problem
+    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
+    _check(f"{tag}q_xyz", q_xyz, torch.float32, (qn, 3), dev)
+    _check(f"{tag}q_mask", q_mask, torch.bool, (qn,), dev)
+    _check(f"{tag}p_xyz", p_xyz, torch.float32, (pn, 3), dev)
+    _check(f"{tag}p_mask", p_mask, torch.bool, (pn,), dev)
+    if pn < 1:
+        raise ValueError(f"{tag}nn: empty support")
+
+
+def _nn_outputs(qn: int, dev: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((qn,), dtype=torch.int32, device=dev),
+            torch.empty((qn,), dtype=torch.float32, device=dev))
+
+
+def _launch_nn(problems: Sequence[NnProblem]
+               ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """One launch of ``csrc/nn.cu`` for up to NN_MAX_GROUP checked CUDA
+    problems, each with Q >= 1."""
+    dev = problems[0][0].device
+    outs = [_nn_outputs(pr[0].shape[0], dev) for pr in problems]
+    ptrs = (ctypes.c_void_p * (6 * len(problems)))(*[
+        t.data_ptr() for pr, out in zip(problems, outs) for t in (*pr, *out)])
+    sizes = (ctypes.c_int * (2 * len(problems)))(*[
+        n for pr in problems for n in (pr[0].shape[0], pr[2].shape[0])])
+    n_tiles = sum(-(-pr[0].shape[0] // NN_TILE_Q) for pr in problems)
+    keys, counters = _scratch(problems[0][0],
+                              sum(pr[0].shape[0] for pr in problems), n_tiles)
+    _check_launch(library().mulls_nn_grouped(
+        len(problems), ptrs, sizes, _ptr(keys), _ptr(counters),
+        _stream(problems[0][0])), "nn")
+    nn.launches += 1
+    return outs
+
+
+def nn_grouped(problems: Sequence[NnProblem]
+               ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`nn` for each ``(q_xyz, q_mask, p_xyz, p_mask)`` problem of a
+    group, in one launch per NN_MAX_GROUP problems (problems without
+    queries take none).  Returns ``[(idx, sqdist), ...]`` in order; every
+    result equals :func:`nn` on its problem bit for bit.
+
+    CUDA kernel: ``csrc/nn.cu`` (replaces ``nn_pallas``,
+    ``mulls_tpu/ops/kernels.py:90-150``): query tiles x support chunks over
+    the whole group, merged exactly — see the source note."""
+    problems = [tuple(pr) for pr in problems]
+    if not problems:
+        return []
+    dev = problems[0][0].device
+    for k, pr in enumerate(problems):
+        _check_nn(pr, dev, f"problem {k}: ")
+    if not _dispatch(dev):
+        return nn_grouped_plain(problems)
+    outs = [_nn_outputs(0, dev) for _ in problems]
+    live = [k for k, pr in enumerate(problems) if pr[0].shape[0] > 0]
+    for s in range(0, len(live), NN_MAX_GROUP):
+        group = live[s:s + NN_MAX_GROUP]
+        for k, out in zip(group, _launch_nn([problems[k] for k in group])):
+            outs[k] = out
+        nn_grouped.launches += 1
+    return outs
+
+
 def nn(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
        p_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused 1-NN: (idx [Q] int32, sqdist [Q] f32).  Invalid support is
     excluded, invalid queries get the 3.0e38 sentinel, ties go to the lowest
     support index (API parity with ``mulls_tpu.ops.kernels.nn_pallas``).
 
-    CUDA kernel: ``csrc/nn.cu`` (replaces ``nn_pallas``,
-    ``mulls_tpu/ops/kernels.py:90-150``); one thread per query over
-    shared-memory support tiles — bound by fp32 operations, see the
-    source note."""
+    CUDA kernel: ``csrc/nn.cu`` as a group of one (replaces ``nn_pallas``,
+    ``mulls_tpu/ops/kernels.py:90-150``) — bound by fp32 operations, see
+    the source note."""
+    problem = (q_xyz, q_mask, p_xyz, p_mask)
     dev = q_xyz.device
-    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
-    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
-    _check("q_mask", q_mask, torch.bool, (qn,), dev)
-    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
-    _check("p_mask", p_mask, torch.bool, (pn,), dev)
-    if pn < 1:
-        raise ValueError("nn: empty support")
+    _check_nn(problem, dev, "")
     if not _dispatch(dev):
-        return nn_plain(q_xyz, q_mask, p_xyz, p_mask)
-    lib = library()
-    idx = torch.empty((qn,), dtype=torch.int32, device=dev)
-    d2 = torch.empty((qn,), dtype=torch.float32, device=dev)
-    _check_launch(lib.mulls_nn(_ptr(q_xyz), _ptr(q_mask), _ptr(p_xyz),
-                               _ptr(p_mask), qn, pn, _ptr(idx), _ptr(d2),
-                               _stream(q_xyz)), "nn")
-    nn.launches += 1
-    return idx, d2
+        return nn_plain(*problem)
+    if q_xyz.shape[0] == 0:  # nothing to launch
+        return _nn_outputs(0, dev)
+    return _launch_nn([problem])[0]
 
 
 nn.launches = 0
+nn_grouped.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -297,7 +402,8 @@ def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
     Returns (sums [Q,C], close_sums [Q,C] or None).
 
     CUDA kernel: ``csrc/moments.cu`` (replaces ``moments_pallas``,
-    ``mulls_tpu/ops/kernels.py:157-262``)."""
+    ``mulls_tpu/ops/kernels.py:157-262``): query tiles x support chunks,
+    merged in chunk order, so two launches give the same bits."""
     dev = q_xyz.device
     qn, pn = q_xyz.shape[0], p_xyz.shape[0]
     cn = feat_stack.shape[1] if feat_stack.dim() == 2 else -1
@@ -315,12 +421,18 @@ def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
         return moments_plain(q_xyz, p_xyz, p_mask, r2, feat_stack, close_r2)
     lib = library()
     sums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
-    csums = (torch.empty((qn, cn), dtype=torch.float32, device=dev)
-             if close_r2 is not None else None)
+    # per-chunk partial sums, added in chunk order by the kernel
+    part_shape = (max(1, -(-pn // MOMENTS_CHUNK)), qn, cn)
+    partial = torch.empty(part_shape, dtype=torch.float32, device=dev)
+    csums = cpartial = None
+    if close_r2 is not None:
+        csums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+        cpartial = torch.empty(part_shape, dtype=torch.float32, device=dev)
+    _, counters = _scratch(q_xyz, 0, -(-qn // MOMENTS_TILE_Q))
     _check_launch(lib.mulls_moments(
         _ptr(q_xyz), _ptr(r2), _ptr(close_r2), _ptr(p_xyz), _ptr(p_mask),
-        _ptr(feat_stack), qn, pn, cn, _ptr(sums), _ptr(csums),
-        _stream(q_xyz)), "moments")
+        _ptr(feat_stack), qn, pn, cn, _ptr(partial), _ptr(cpartial),
+        _ptr(counters), _ptr(sums), _ptr(csums), _stream(q_xyz)), "moments")
     moments.launches += 1
     return sums, csums
 

@@ -99,13 +99,13 @@ def cov_from_moments(count: torch.Tensor, sum_xyz: torch.Tensor,
     ], dim=-1).reshape(-1, 3, 3)
 
 
-def nearest_neighbor(q_xyz: torch.Tensor, q_mask: torch.Tensor,
-                     p_xyz: torch.Tensor, p_mask: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Brute-force 1-NN: returns (idx [Q] int32, sqdist [Q] f32).
-    Invalid queries / empty support get sqdist = the 3.0e38 sentinel."""
-    return kernels.nn(q_xyz.contiguous(), q_mask.contiguous(),
-                      p_xyz.contiguous(), p_mask.contiguous())
+def nearest_neighbor_grouped(problems) -> list:
+    """Brute-force 1-NN for each ``(q_xyz, q_mask, p_xyz, p_mask)`` of
+    ``problems``, in one kernel launch (per 8 problems) on the card:
+    ``[(idx [Q] int32, sqdist [Q] f32), ...]``.  Invalid queries and
+    queries without valid support get sqdist = the 3.0e38 sentinel."""
+    return kernels.nn_grouped([tuple(t.contiguous() for t in pr)
+                               for pr in problems])
 
 
 def normal_shooting_neighbor(q_xyz: torch.Tensor, q_dir: torch.Tensor,

@@ -41,7 +41,7 @@ from mulls_tpu_torch.frontend.icp import RegResult, mm_lls_icp
 from mulls_tpu_torch.mapping.local_map import (LocalMap, init_local_map,
                                                refresh_linear_map_vectors,
                                                update_local_map)
-from mulls_tpu_torch.ops.neighbors import nearest_neighbor
+from mulls_tpu_torch.ops.neighbors import nearest_neighbor_grouped
 
 
 @dataclass
@@ -343,15 +343,25 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
                                     max=9.0 * dyn_gate2)
             sup_res = torch.tensor(0.0, device=dev)
             sup_prior = torch.tensor(0.0, device=dev)
+            # map distances of every class under the prior and of the
+            # support classes under the deviant solve, in one grouped call
+            names = list(frame.down)
+            sup_names = [n for n in names
+                         if n in ("pillar", "facade", "beam", "vertex")]
+            maps = state.local_map.clouds
+            found = nearest_neighbor_grouped(
+                [(se3.transform_points(pose, frame.down[n].xyz),
+                  frame.down[n].mask, maps[n].xyz, maps[n].mask)
+                 for pose, group in ((guess0, names),
+                                     (res.transform, sup_names))
+                 for n in group])
+            d2p = {n: d2 for n, (_, d2) in zip(names, found)}
+            d2r = {n: d2 for n, (_, d2) in zip(sup_names, found[len(names):])}
             cleaned = {}
             for name, c in frame.down.items():
-                m = state.local_map.clouds[name]
-                p_xyz = se3.transform_points(guess0, c.xyz)
-                _, d2p = nearest_neighbor(p_xyz, c.mask, m.xyz, m.mask)
-                cleaned[name] = c.replace(mask=c.mask & (d2p < dyn_gate2))
-                if name in ("pillar", "facade", "beam", "vertex"):
-                    r_xyz = se3.transform_points(res.transform, c.xyz)
-                    _, d2r = nearest_neighbor(r_xyz, c.mask, m.xyz, m.mask)
+                cleaned[name] = c.replace(
+                    mask=c.mask & (d2p[name] < dyn_gate2))
+                if name in d2r:
                     a = torch.abs(se3.rotate_vectors(guess0, c.normal) @ u)
                     if name == "facade":
                         w = a
@@ -360,9 +370,9 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
                     else:  # pillar/beam: axis direction in `normal`
                         w = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
                     sup_res = sup_res + torch.sum(
-                        w * (c.mask & (d2r < sup_gate2)))
+                        w * (c.mask & (d2r[name] < sup_gate2)))
                     sup_prior = sup_prior + torch.sum(
-                        w * (c.mask & (d2p < sup_gate2)))
+                        w * (c.mask & (d2p[name] < sup_gate2)))
             res2 = mm_lls_icp(cleaned, state.local_map.clouds, cfg.reg,
                               guess0, max_iter=cfg.reg.reg_max_iter_num_s2m,
                               dis_thre_add=s2m_add)

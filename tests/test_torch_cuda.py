@@ -38,8 +38,11 @@ def _clouds(dev, seed, qn, pn, valid=0.9, extent=40.0):
     return [torch.from_numpy(a).to(dev) for a in (q, qm, p, pm)]
 
 
-# sizes below, at and above the kernels' block (64) and tile (256 / 1024)
+# sizes below, at and above pca_moments' block (64) and tile (1024)
 _SIZES = [(1, 1), (63, 257), (64, 1024), (700, 5000), (1200, 8192)]
+# below, at and above nn's query tile (128), stage (256) and chunk (1024)
+_NN_SIZES = [(1, 1), (127, 255), (128, 256), (129, 257), (128, 1024),
+             (129, 1025), (700, 5000), (1200, 8192)]
 
 
 @pytest.mark.parametrize("qn,pn", _SIZES)
@@ -53,6 +56,68 @@ def test_nn_kernel_equals_plain(dev, qn, pn):
     assert torch.equal(idx[v], ridx[v])
 
 
+def _nn_problem(dev, seed, qn, pn, kind="random"):
+    q, qm, p, pm = _clouds(dev, seed, qn, pn)
+    if kind == "no_support":
+        pm = torch.zeros_like(pm)
+    elif kind == "duplicates":
+        # every support point twice, the copies interleaved: each nearest
+        # point is tied, and the lower index must win
+        p = p.repeat_interleave(2, dim=0)
+        pm = torch.ones(2 * pn, dtype=torch.bool, device=dev)
+    return q, qm, p, pm
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_nn_grouped_kernel_equals_plain_bit_for_bit(dev, n):
+    kinds = ["random", "duplicates", "no_support"]
+    probs = [_nn_problem(dev, 10 * n + k, *_NN_SIZES[(n + k) % 8],
+                         kind=kinds[k % 3])
+             for k in range(n)]
+    kernels.reset_launch_counts()
+    got = kernels.nn_grouped(probs)
+    want = kernels.nn_grouped_plain(probs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["nn_grouped"] == 1
+    for k, ((idx, d2), (ridx, rd2)) in enumerate(zip(got, want)):
+        assert torch.equal(d2, rd2), k
+        assert torch.equal(idx, ridx), k
+    if n >= 2:  # the duplicated support: the copy at the odd index never wins
+        assert torch.all(got[1][0] % 2 == 0)
+
+
+def test_nn_grouped_kernel_edge_members_and_splitting(dev):
+    """An empty member, Q = 1, P = 1, and more than 8 problems with
+    queries (two launches): every member equals its plain version."""
+    probs = [_nn_problem(dev, 40 + k, qn, pn) for k, (qn, pn) in enumerate(
+        [(0, 30), (1, 1), (1, 5000), (300, 1), (64, 2048), (1200, 8192),
+         (200, 512), (800, 6144), (400, 1536), (129, 1025)])]
+    kernels.reset_launch_counts()
+    got = kernels.nn_grouped(probs)
+    want = kernels.nn_grouped_plain(probs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["nn_grouped"] == 2
+    assert kernels.launch_counts()["nn"] == 2
+    for (idx, d2), (ridx, rd2) in zip(got, want):
+        assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+
+
+def test_nn_and_moments_kernels_repeat_their_bits(dev):
+    probs = [_nn_problem(dev, 50 + k, qn, pn) for k, (qn, pn) in enumerate(
+        [(800, 6144), (400, 1536), (1200, 8192), (200, 1024), (200, 512)])]
+    first = kernels.nn_grouped(probs)
+    second = kernels.nn_grouped(probs)
+    for a, b in zip(first, second):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    q, _, p, pm = _clouds(dev, 51, 4096, 20480, extent=20.0)
+    r2 = torch.full((4096,), 9.0, device=dev)  # ~37 neighbors a query
+    g = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.rand((20480, 6), generator=g, device=dev)
+    a = kernels.moments(q, p, pm, r2, feats, 0.3 * r2)
+    b = kernels.moments(q, p, pm, r2, feats, 0.3 * r2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_nn_kernel_with_no_valid_support(dev):
     q, qm, p, _ = _clouds(dev, 2, 100, 300)
     pm = torch.zeros(300, dtype=torch.bool, device=dev)
@@ -63,11 +128,16 @@ def test_nn_kernel_with_no_valid_support(dev):
 
 @pytest.mark.parametrize("c", [1, 6, 16])
 @pytest.mark.parametrize("close", [False, True])
-def test_moments_kernel_equals_plain(dev, c, close):
-    q, _, p, pm = _clouds(dev, 3, 700, 5000, extent=20.0)
-    r2 = torch.full((700,), 9.0, device=dev)
+@pytest.mark.parametrize("qn,pn", [
+    (700, 5000), (1, 5000), (129, kernels.MOMENTS_CHUNK + 1),
+    (128, 2 * kernels.MOMENTS_CHUNK)])
+def test_moments_kernel_equals_plain(dev, c, close, qn, pn):
+    """P off and on a multiple of the support chunk, Q = 1, and Q off and
+    on a multiple of the 128-query tile."""
+    q, _, p, pm = _clouds(dev, 3, qn, pn, extent=20.0)
+    r2 = torch.full((qn,), 9.0, device=dev)
     g = torch.Generator(device=dev).manual_seed(4)
-    feats = torch.rand((5000, c), generator=g, device=dev)
+    feats = torch.rand((pn, c), generator=g, device=dev)
     feats[:, 0] = 1.0  # a count column: exact on both sides
     cr2 = 0.5 * r2 if close else None
     s, cs = kernels.moments(q, p, pm, r2, feats, cr2)
@@ -130,13 +200,17 @@ def test_cuda_tensors_launch_the_kernels_and_count_once(dev, monkeypatch):
         monkeypatch.setattr(kernels, name, refuse)
     q, qm, p, pm = _clouds(dev, 7, 200, 900)
     r2 = torch.full((200,), 9.0, device=dev)
+    for name in ("nn_grouped_plain",):
+        monkeypatch.setattr(kernels, name, refuse)
     kernels.reset_launch_counts()
     kernels.nn(q, qm, p, pm)
+    kernels.nn_grouped([(q, qm, p, pm), (p, pm, q, qm)])
     kernels.moments(q, p, pm, r2, torch.ones((900, 1), device=dev))
     kernels.pca_moments(q, p, pm, r2)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"nn": 1, "moments": 1,
-                                       "pca_moments": 1}
+    # nn counts every launch of its kernel, nn_grouped its own
+    assert kernels.launch_counts() == {"nn": 2, "nn_grouped": 1,
+                                       "moments": 1, "pca_moments": 1}
 
 
 def test_wrappers_refuse_mixed_devices(dev):

@@ -190,11 +190,170 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     a = kernels.nn(q, qm, p, pm)
     b = kernels.nn_plain(q, qm, p, pm)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    (c,) = kernels.nn_grouped([(q, qm, p, pm)])
+    assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1])
     r2 = torch.full((50,), 9.0)
     assert torch.equal(kernels.pca_moments(q, p, pm, r2)[0],
                        kernels.pca_moments_plain(q, p, pm, r2)[0])
-    assert kernels.launch_counts() == {"nn": 0, "moments": 0,
-                                       "pca_moments": 0}
+    assert kernels.launch_counts() == {"nn": 0, "nn_grouped": 0,
+                                       "moments": 0, "pca_moments": 0}
+
+
+def _nn_group(seed):
+    """numpy problems of one nn group: an ordinary one, an empty member,
+    one without valid support, Q = 1, P = 1, and support whose second half
+    repeats its first (every nearest point is tied with a copy)."""
+    rng = np.random.default_rng(seed)
+
+    def problem(qn, pn, p_valid=0.9):
+        q = rng.uniform(-40, 40, (qn, 3)).astype(np.float32)
+        p = rng.uniform(-40, 40, (pn, 3)).astype(np.float32)
+        return (q, rng.uniform(size=qn) < 0.9, p,
+                rng.uniform(size=pn) < p_valid)
+
+    q, qm, p, _ = problem(80, 400)
+    dup = (q, qm, np.concatenate([p, p]), np.ones(800, bool))
+    return [problem(300, 2500), problem(0, 50), problem(40, 60, p_valid=0.0),
+            problem(1, 100), problem(30, 1, p_valid=1.0), dup]
+
+
+def _nn_numpy(q, qm, p, pm):
+    """Independent 1-NN in numpy float32, the distance formed as the port
+    forms it; np.argmin keeps the first (lowest) index of a tie."""
+    d = q[:, None, :] - p[None, :, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    d2 = np.where(pm[None, :], d2, np.float32(3.0e38))
+    idx = np.argmin(d2, axis=1).astype(np.int32)
+    best = np.take_along_axis(d2, idx[:, None].astype(np.int64), 1)[:, 0]
+    return idx, np.where(qm, best, np.float32(3.0e38))
+
+
+def test_nn_grouped_plain_matches_nn_plain_pallas_and_xla():
+    probs = _nn_group(10)
+    out = kernels.nn_grouped([_t(*pr) for pr in probs])
+    assert len(out) == len(probs)
+    for k, ((q, qm, p, pm), (idx, d2)) in enumerate(zip(probs, out)):
+        # the group is nn_plain per problem, and equals an independent
+        # numpy scan bit for bit (same distance form, first index of a tie)
+        ridx, rd2 = kernels.nn_plain(*_t(q, qm, p, pm))
+        assert torch.equal(idx, ridx) and torch.equal(d2, rd2), k
+        assert idx.dtype == torch.int32 and d2.dtype == torch.float32
+        nidx, nd2 = _nn_numpy(q, qm, p, pm)
+        np.testing.assert_array_equal(idx.numpy(), nidx)
+        np.testing.assert_array_equal(d2.numpy(), nd2)
+        if len(q) == 0:
+            assert idx.shape == (0,) and d2.shape == (0,)
+            continue
+        idx, d2 = idx.numpy(), d2.numpy()
+        if not pm.any():
+            # no valid support: the sentinel, and index 0 as the Pallas
+            # kernel's argmin over +BIG gives
+            pidx, pd2 = nn_pallas(q, qm, p, pm, interpret=True)
+            assert np.all(d2 > 1e30) and np.all(np.asarray(pd2) > 1e30)
+            np.testing.assert_array_equal(idx, np.asarray(pidx))
+            continue
+        for ref_idx, ref_d2 in (nn_pallas(q, qm, p, pm, interpret=True),
+                                neighbors.nearest_neighbor(q, qm, p, pm)):
+            ref_idx, ref_d2 = np.asarray(ref_idx), np.asarray(ref_d2)
+            # tolerance of tests/test_kernels.py: the reference expands
+            # |q|^2 + |p|^2 - 2 q.p (fp32 rounding ~1e-3 m^2 at 40 m)
+            np.testing.assert_allclose(d2[qm], ref_d2[qm], rtol=1e-4,
+                                       atol=1e-3)
+            d_ref = np.sum((q - p[ref_idx]) ** 2, -1)
+            np.testing.assert_allclose(np.sum((q - p[idx]) ** 2, -1)[qm],
+                                       d_ref[qm], rtol=1e-4, atol=1e-3)
+            assert np.all(d2[~qm] > 1e30) and np.all(ref_d2[~qm] > 1e30)
+    # ties go to the lowest index: the copy in the second half never wins
+    assert np.all(out[-1][0].numpy() < 400)
+
+
+def test_nn_grouped_checks_every_problem():
+    probs = [_t(*pr) for pr in _nn_group(11)]
+    assert kernels.nn_grouped([]) == []
+    bad = list(probs)
+    bad[3] = (bad[3][0].double(),) + tuple(bad[3][1:])
+    with pytest.raises(TypeError, match="problem 3"):
+        kernels.nn_grouped(bad)
+    empty = list(probs)
+    q, qm = empty[0][:2]
+    empty[0] = (q, qm, torch.zeros((0, 3)), torch.zeros((0,), dtype=bool))
+    with pytest.raises(ValueError, match="empty support"):
+        kernels.nn_grouped(empty)
+
+
+def _count_calls(monkeypatch, name):
+    calls = []
+    fn = getattr(kernels, name)
+
+    def counted(*args, **kwargs):
+        calls.append(len(args[0]) if name == "nn_grouped" else 1)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(kernels, name, counted)
+    return calls
+
+
+def _feature_clouds(rng, caps, n_valid):
+    from mulls_tpu_torch.core.cloud import FeatureCloud
+    out = {}
+    for name, cap in caps.items():
+        nrm = rng.normal(size=(cap, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        out[name] = FeatureCloud(
+            xyz=torch.from_numpy(rng.uniform(-15, 15, (cap, 3)).astype(
+                np.float32)),
+            normal=torch.from_numpy(nrm.astype(np.float32)),
+            intensity=torch.from_numpy(rng.uniform(0, 200, cap).astype(
+                np.float32)),
+            strength=torch.zeros(cap), height=torch.zeros(cap),
+            ts_ratio=torch.zeros(cap),
+            mask=torch.arange(cap) < min(n_valid, cap))
+    return out
+
+
+def test_mm_lls_icp_makes_one_grouped_nn_call_per_iteration(monkeypatch):
+    from mulls_tpu_torch.config import RegConfig
+    from mulls_tpu_torch.frontend.icp import mm_lls_icp
+    grouped = _count_calls(monkeypatch, "nn_grouped")
+    single = _count_calls(monkeypatch, "nn")
+    rng = np.random.default_rng(12)
+    caps = {"ground": 96, "pillar": 32, "facade": 64, "beam": 16,
+            "roof": 16}
+    src = _feature_clouds(rng, caps, 40)
+    tgt = _feature_clouds(rng, {n: 2 * c for n, c in caps.items()}, 120)
+    res = mm_lls_icp(src, tgt, RegConfig(), torch.eye(4), max_iter=6)
+    # every iteration runs (a done ICP is frozen, not stopped), and each
+    # makes one call for all five classes of the default "111110"
+    assert grouped == [5] * 6 and single == []
+    assert int(res.iterations) >= 1
+
+
+def test_update_local_map_makes_one_grouped_nn_call(monkeypatch):
+    from mulls_tpu_torch.config import MapConfig, MapShapeConfig
+    from mulls_tpu_torch.core.cloud import (FEATURE_NAMES, FeatureFrame,
+                                            VertexDescriptors)
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.mapping.local_map import (init_local_map,
+                                                   update_local_map)
+    grouped = _count_calls(monkeypatch, "nn_grouped")
+    single = _count_calls(monkeypatch, "nn")
+    rng = np.random.default_rng(13)
+    cfg = MapConfig(local_map_max_pt_num=50, shapes=MapShapeConfig(
+        ground=64, pillar=32, beam=32, facade=64, roof=32, vertex=32))
+    caps = {n: 24 for n in FEATURE_NAMES}
+    m = init_local_map(cfg, "cpu")
+    draws = GeneratorDraws(0, "cpu")
+    for _ in range(2):
+        down = _feature_clouds(rng, caps, 20)
+        frame = FeatureFrame(full=down, down=down,
+                             descriptors=VertexDescriptors.empty(24, "cpu"),
+                             bbx_min=torch.full((3,), -15.0),
+                             bbx_max=torch.full((3,), 15.0))
+        m = update_local_map(m, frame, torch.eye(4), torch.tensor(1.0), cfg,
+                             draws)
+    # one call per update, for the three dynamic-removal classes
+    assert grouped == [3, 3] and single == []
+    assert int(m.clouds["facade"].count) > 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "mask"])
