@@ -16,21 +16,32 @@ Phases (each prints its own line; any failure exits non-zero):
               the device (torch.profiler) and per call with CUDA events,
               the plain version and, where one exists, a library
               yardstick (timed here only).
-4. main     — ``OdometryPipeline`` at full width (``MullsConfig()``
+4. probe    — the roofline probe's two kernels (``count_within``,
+              ``adj_stack``) against their plain versions on the card: on
+              the probe's own inputs, and on a dense case from the scan
+              (10240 x 20480 at r = 0.7) with ones, integer and random bf16
+              stacks, each twice for the same bits; then the same dense
+              case timed for pca_moments, count_within, moments (the
+              hit-sparse form) and adj_stack (the dense form); then the
+              probe itself (``mulls_tpu_torch.tools.roofline.run_probe``)
+              with its launch counts, which must be > 0.
+5. main     — ``OdometryPipeline`` at full width (``MullsConfig()``
               defaults: n_raw 131072, n_unground 20480) over ~32 frames of
               a synthetic world (>= 100k valid points per scan, made with
-              numpy from a fixed seed).  Checks that each kernel launched,
+              numpy from a fixed seed).  Checks that each of the four
+              main-path counters (nn, nn_grouped, moments, pca_moments)
+              counted launches,
               that nn launched at most 30 times a frame, that >= 90 % of
               the frames after the first registered with code 1, and the
               end translation error against ground truth.
-5. agree    — the port on the card against the port's plain PyTorch paths
+6. agree    — the port on the card against the port's plain PyTorch paths
               on the CPU, same scans and same draws, at a small width:
               equal codes and per-frame motion within 2 cm / 0.2 deg.
               Then stage by stage: at each frame the card gets the CPU's
               own state, scan and draws, and the script prints the first
               call of each stage whose outputs differ, and the first that
               flips a mask, an index or a count.
-6. profile  — where a frame's time goes at full width: stage times
+7. profile  — where a frame's time goes at full width: stage times
               (feature / reg / map, a sync around each) and, from
               ``torch.profiler``, the device's busy share and the kernels
               that take the most device time.
@@ -47,16 +58,10 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
-
-# fp32 peak outside the tensor cores and HBM rate of one H100 SXM (NVIDIA
-# data sheet, at the 700 W limit): the roofline of the bound_ms column
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 FRAMES = 32  # full-width frames of the main path
 SEED = 0  # of the synthetic worlds, the scans and the draws
@@ -145,43 +150,9 @@ def render_scan(world: np.ndarray, pose: np.ndarray, n_raw: int,
 
 
 # --------------------------------------------------------------------------
-# timing
+# repeat check (the timing and bound helpers are the probe's, in
+# mulls_tpu_torch/tools/roofline.py)
 # --------------------------------------------------------------------------
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, iters: int) -> tuple:
-    """(device ms per call, device operations per call) of ``fn`` under
-    ``torch.profiler``: the kernels' own time, without the host's launch
-    gaps that CUDA events between calls of a short kernel also count."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return (sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters,
-            len(kern) / iters)
-
 
 def same_bits(fn) -> bool:
     """Two calls of ``fn`` give identical tensors."""
@@ -189,13 +160,6 @@ def same_bits(fn) -> bool:
     a, b = leaves(fn()), leaves(fn())
     return len(a) == len(b) and all(torch.equal(u, v)
                                     for (_, u), (_, v) in zip(a, b))
-
-
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +170,7 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     import torch
     from mulls_tpu_torch.ops import kernels
     from mulls_tpu_torch.ops.neighbors import cov_from_moments
+    from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
 
     rng = np.random.default_rng(seed + 1)
     valid = np.where(scan["mask"])[0]
@@ -398,7 +363,139 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the roofline probe and its two kernels
+# --------------------------------------------------------------------------
+
+def probe_phase(scan: dict, dev, seed: int) -> dict:
+    import torch
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools import roofline as rf
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    def check(tag, q, p, pm, r2, stacks) -> float:
+        """count_within exact; adj_stack exact for integer-valued stacks
+        (0/1 times integers below 2^24 sums exactly in fp32), and for the
+        others within rtol 1e-5 and atol 1e-5 x the sum of |terms| (fp32
+        summation order); every kernel twice for the same bits."""
+        ck = rf.count_within(q, p, pm, r2)
+        cp = rf.count_within_plain(q, p, pm, r2)
+        torch.cuda.synchronize()
+        if not torch.equal(ck, cp):
+            raise AssertionError(f"count_within {tag}: "
+                                 f"{int((ck != cp).sum())} counts differ")
+        if not same_bits(lambda: rf.count_within(q, p, pm, r2)):
+            raise AssertionError(f"count_within {tag}: two launches differ")
+        errs = []
+        for name, f, exact in stacks:
+            sk = rf.adj_stack(q, p, pm, r2, f)
+            sp = rf.adj_stack_plain(q, p, pm, r2, f)
+            err = float((sk - sp).abs().max())
+            if exact:
+                ok = torch.equal(sk, sp)
+            else:
+                terms = rf.adj_stack_plain(q, p, pm, r2, f.abs())
+                ok = bool(torch.all((sk - sp).abs()
+                                    <= 1e-5 * sp.abs() + 1e-5 * terms))
+            if not ok:
+                raise AssertionError(f"adj_stack {tag}, {name}: max err "
+                                     f"{err} outside the tolerance")
+            if not same_bits(lambda: rf.adj_stack(q, p, pm, r2, f)):
+                raise AssertionError(f"adj_stack {tag}, {name}: two "
+                                     f"launches differ")
+            errs.append(err)
+            print(f"[probe] adj_stack {tag}, {name}: "
+                  f"{'exact' if exact else f'max|err| {err:.3g}'}, same "
+                  f"bits twice", flush=True)
+        print(f"[probe] count_within {tag}: exact, same bits twice; "
+              f"{float(ck.mean()):.3f} hits a query", flush=True)
+        return max(errs)
+
+    # (a) the probe's own inputs: 20480 x 20480, r^2 = 1, the ones stack
+    x = rf.probe_inputs()
+    q, p = t(x["q_map"]), t(x["p"])
+    qn, pn = q.shape[0], p.shape[0]
+    pm = torch.ones(pn, dtype=torch.bool, device=dev)
+    r2 = torch.ones(qn, dtype=torch.float32, device=dev)
+    ones = torch.ones((pn, 128), dtype=torch.bfloat16, device=dev)
+    err_a = check(f"probe {qn}x{pn}", q, p, pm, r2,
+                  [("ones C=128", ones, True)])
+    plain = {"count_within": rf.time_ms(
+        lambda: rf.count_within_plain(q, p, pm, r2), 3),
+        "adj_stack": rf.time_ms(
+            lambda: rf.adj_stack_plain(q, p, pm, r2, ones), 3)}
+    del q, p, pm, r2, ones
+
+    # (b) dense: the frame PCA's shape, 10240 queries (a subset of the
+    # support) x 20480 scan points at r = 0.7, as the pca_moments check
+    rng = np.random.default_rng(seed + 3)
+    pts = scan["xyz"][np.where(scan["mask"])[0]]
+    p = t(pts[rng.choice(len(pts), 20480, replace=False)])
+    pm = t(rng.uniform(size=20480) < 0.97, torch.bool)
+    sel = torch.as_tensor(rng.choice(20480, 10240, replace=False),
+                          device=dev)
+    q = p[sel].contiguous()
+    r2 = torch.full((10240,), 0.7 ** 2, dtype=torch.float32, device=dev)
+    cols = np.arange(1, 65, dtype=np.float32)[None, :]
+    stacks = [
+        ("ones C=128", torch.ones((20480, 128), dtype=torch.bfloat16,
+                                  device=dev), True),
+        # column-distinct integers (|value| <= 256, exact in bf16): a
+        # transposed fragment would show
+        ("integers C=64", t(cols * rng.integers(-4, 5, (20480, 1)),
+                            torch.bfloat16), True),
+        ("random C=16", t(rng.normal(size=(20480, 16)), torch.bfloat16),
+         False),
+        ("random C=128", t(rng.normal(size=(20480, 128)), torch.bfloat16),
+         False)]
+    err_b = check("dense 10240x20480", q, p, pm, r2, stacks)
+
+    # the dense case timed for each form of the neighbourhood sum
+    hits = float(rf.count_within_plain(q, p, pm, r2).sum())
+    f10 = t(rng.uniform(size=(20480, 10)))
+    dense = {"hits_per_query": hits / 10240}
+    for name, fn in (
+            ("pca_moments", lambda: kernels.pca_moments(q, p, pm, r2)),
+            ("count_within", lambda: rf.count_within(q, p, pm, r2)),
+            ("moments C=10", lambda: kernels.moments(q, p, pm, r2, f10)),
+            ("adj_stack C=16", lambda: rf.adj_stack(q, p, pm, r2,
+                                                    stacks[2][1])),
+            ("adj_stack C=128", lambda: rf.adj_stack(q, p, pm, r2,
+                                                     stacks[3][1]))):
+        dense[name] = rf.device_ms(fn, 20)[0]
+    print("[probe] dense 10240x20480 (r = 0.7, "
+          f"{hits / 10240:.1f} hits a query), device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in dense.items()
+                      if k != "hits_per_query"), flush=True)
+
+    # the probe itself, through its entry point's function; its launches
+    rf.reset_launch_counts()
+    rec = rf.run_probe(dev, x)
+    launches = rf.launch_counts()
+    print(f"[probe] launches {launches}", flush=True)
+    for name, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"probe")
+    rows = {r["kernel"]: r for r in rec["rows"]}
+    entries = []
+    for name, line, err in (("count_within", 69, 0.0),
+                            ("adj_stack", 84, max(err_a, err_b))):
+        r = rows[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"mulls_tpu_torch/csrc/{name}.cu",
+            "replaces": f"tools/perf_mfu_roofline.py:{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": r["device_ms"], "plain_ms": plain[name],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"]})
+    return {"entries": entries, "record": rec, "dense": dense}
+
+
+# --------------------------------------------------------------------------
+# phase 5: the main path
 # --------------------------------------------------------------------------
 
 def main_phase(frames: list, gt: np.ndarray, dev) -> dict:
@@ -442,7 +539,7 @@ def main_phase(frames: list, gt: np.ndarray, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 5: the card against the CPU at a small width
+# phase 6: the card against the CPU at a small width
 # --------------------------------------------------------------------------
 
 class HostDraws:
@@ -716,7 +813,7 @@ def agree_phase(dev, seed: int, n_frames: int = 6) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 6: where a frame's time goes
+# phase 7: where a frame's time goes
 # --------------------------------------------------------------------------
 
 def profile_phase(frames: list, cfg, dev, warm: int = 4, window: int = 4
@@ -820,19 +917,17 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
-    print(card, flush=True)
-    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}: {torch.cuda.get_device_name(0)}"
-          f" x {torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda", 0)
 
     import mulls_tpu_torch  # noqa: F401  (sets the fp32 matmul flags)
     from mulls_tpu_torch.config import MullsConfig
     from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools.roofline import card_line
+    card = card_line(dev)
+    print(card, flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}: {torch.cuda.get_device_name(0)}"
+          f" x {torch.cuda.device_count()}", flush=True)
 
     # --- phase 2: build
     t0 = time.perf_counter()
@@ -863,10 +958,16 @@ def main() -> int:
     except AssertionError as e:
         return fail(f"kernel check: {e}")
 
-    # --- phase 4: main path
+    # --- phase 4: the roofline probe
+    try:
+        probe = probe_phase(frames[0], dev, SEED)
+    except AssertionError as e:
+        return fail(f"probe check: {e}")
+
+    # --- phase 5: main path
     main_res = main_phase(frames, gt, dev)
     launches = main_res["launches"]
-    # --- phase 5: card against CPU; phase 6: time breakdown
+    # --- phase 6: card against CPU; phase 7: time breakdown
     agree = agree_phase(dev, SEED)
     prof = profile_phase(frames, MullsConfig(), dev)
     kernels_line = []
@@ -888,9 +989,11 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+    # the probe's kernels, with the launches of the probe's own run
+    kernels_line += probe["entries"]
 
     problems = []
-    for name, k in launches.items():
+    for name, k in launches.items():  # the four counters of the main path
         if k <= 0:
             problems.append(f"kernel {name} was not launched on the main "
                             f"path")
@@ -929,7 +1032,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels_line,
-                       "kernel_rows": rows, "main": main_res,
+                       "kernel_rows": rows, "probe": probe, "main": main_res,
                        "agree": agree, "profile": prof}, f, indent=1)
     if problems:
         for p in problems:

@@ -4,10 +4,13 @@ H100.
 The JAX package ``mulls_tpu`` is the reference and stays beside this one;
 this package imports neither JAX nor anything of ``mulls_tpu``.  Its layout
 mirrors the reference module for module (``core/``, ``ops/``,
-``frontend/``, ``mapping/``, ``pipeline/``, ``io/``, ``eval/``, ``apps/``),
-so each module's counterpart is found by path.  The three Pallas TPU
-kernels of ``mulls_tpu/ops/kernels.py`` are hand-written CUDA here
-(``csrc/``, bound in :mod:`mulls_tpu_torch.ops.kernels`).
+``frontend/``, ``mapping/``, ``pipeline/``, ``io/``, ``eval/``, ``apps/``,
+and ``tools/`` for the repository's ``tools/``), so each module's
+counterpart is found by path.  The three Pallas TPU kernels of
+``mulls_tpu/ops/kernels.py`` and the two of ``tools/perf_mfu_roofline.py``
+are hand-written CUDA here (``csrc/``, bound in
+:mod:`mulls_tpu_torch.ops.kernels`; the probe's two wrapped in
+:mod:`mulls_tpu_torch.tools.roofline`).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,
 where every kernel wrapper takes its plain PyTorch version.

@@ -1,12 +1,14 @@
 // Shared pieces of the brute-force neighborhood kernels (nn.cu,
-// moments.cu, pca_moments.cu): the squared distance, the support-tile
-// staging and the asynchronous copies that feed it.
+// moments.cu, pca_moments.cu, count_within.cu, adj_stack.cu): the squared
+// distance, the support-tile staging and the asynchronous copies that feed
+// it.
 //
 // Support is staged in shared memory as float4 (x, y, z, valid) so that
 // one 16-byte load per point feeds every thread that reads it.  nn.cu and
 // moments.cu fill the x, y, z words with cp.async (4 bytes each: the
 // [P, 3] rows and the callers' views give no 16-byte alignment) and write
-// the valid word from a mask byte loaded into a register one stage ahead.
+// the valid word from a mask byte loaded into a register one stage ahead;
+// count_within.cu and adj_stack.cu stage the same way.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +50,14 @@ __device__ __forceinline__ void load_support_tile(
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// 16 bytes; both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

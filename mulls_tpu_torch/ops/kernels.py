@@ -1,5 +1,6 @@
 """The three neighborhood kernels: hand-written CUDA for Hopper, each with
-its plain PyTorch version beside it.
+its plain PyTorch version beside it; and the one kernel library that holds
+them and the roofline probe's two kernels.
 
 Port of ``mulls_tpu/ops/kernels.py`` (Pallas TPU kernels).  The CUDA
 sources live in ``mulls_tpu_torch/csrc``; they are compiled with ``nvcc``
@@ -13,6 +14,12 @@ at the root of the checkout) and bound with ``ctypes``.
   close sub-neighborhood (replaces ``moments_pallas``).
 * :func:`pca_moments` — query-centred PCA moments (replaces
   ``pca_moments_pallas``).
+
+The roofline probe's kernels (``csrc/count_within.cu``,
+``csrc/adj_stack.cu``) are built into the same library and bound here, but
+their wrappers and launch counts live with the probe, in
+:mod:`mulls_tpu_torch.tools.roofline`, as the TPU kernels they replace
+live in ``tools/perf_mfu_roofline.py``.
 
 Dispatch: a wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -50,7 +57,8 @@ import torch
 _BIG = 3.0e38
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("nn.cu", "moments.cu", "pca_moments.cu")
+_SOURCES = ("nn.cu", "moments.cu", "pca_moments.cu", "count_within.cu",
+            "adj_stack.cu")
 _HEADERS = ("common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,6 +68,8 @@ NN_MAX_GROUP = 8  # problems in one nn launch
 NN_TILE_Q, NN_CHUNK = 128, 1024  # queries x support points per nn block
 MOMENTS_MAX_C = 16  # templated accumulator widths in csrc/moments.cu
 MOMENTS_TILE_Q, MOMENTS_CHUNK = 128, 1024
+COUNT_TILE_Q, COUNT_CHUNK = 256, 512  # csrc/count_within.cu
+ADJ_MAX_C, ADJ_TILE_Q, ADJ_CHUNK = 128, 128, 2048  # csrc/adj_stack.cu
 
 
 # --------------------------------------------------------------------------
@@ -154,11 +164,20 @@ def library() -> ctypes.CDLL:
     lib.mulls_moments.restype = i
     lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
     lib.mulls_pca_moments.restype = i
+    lib.mulls_count_within.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    lib.mulls_count_within.restype = i
+    lib.mulls_adj_stack.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, vp, vp,
+                                    vp]
+    lib.mulls_adj_stack.restype = i
     for fn, want in ((lib.mulls_nn_geometry,
                       (NN_MAX_GROUP, NN_TILE_Q, NN_CHUNK)),
                      (lib.mulls_moments_geometry,
-                      (MOMENTS_MAX_C, MOMENTS_TILE_Q, MOMENTS_CHUNK))):
-        fn.argtypes, fn.restype = [ip, ip, ip], None
+                      (MOMENTS_MAX_C, MOMENTS_TILE_Q, MOMENTS_CHUNK)),
+                     (lib.mulls_count_within_geometry,
+                      (COUNT_TILE_Q, COUNT_CHUNK)),
+                     (lib.mulls_adj_stack_geometry,
+                      (ADJ_MAX_C, ADJ_TILE_Q, ADJ_CHUNK))):
+        fn.argtypes, fn.restype = [ip] * len(want), None
         got = [ctypes.c_int() for _ in want]
         fn(*[ctypes.byref(g) for g in got])
         if tuple(g.value for g in got) != want:
@@ -171,11 +190,12 @@ _scratch_by_stream: dict = {}
 
 
 def _scratch(t: torch.Tensor, n_keys: int, n_counters: int):
-    """(merge words int64 [>= n_keys], arrival counters int32
-    [>= n_counters]) for the current stream of ``t``'s device.  Every launch
-    leaves them as made (words at ``mulls_nn_empty_key()``, counters 0), so
-    they are filled only when made or grown; kernels on one stream run in
-    order, so they never share them."""
+    """(merge words int64 [>= n_keys], int32 counters [>= n_counters]:
+    arrival counters, and count_within's count words) for the current
+    stream of ``t``'s device.  Every launch leaves them as made (words at
+    ``mulls_nn_empty_key()``, counters 0), so they are filled only when
+    made or grown; kernels on one stream run in order, so they never share
+    them."""
     key = (t.device.index, _stream(t).value)
     keys, counters = _scratch_by_stream.get(key, (None, None))
     if keys is None or keys.numel() < n_keys:

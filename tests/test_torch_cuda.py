@@ -9,7 +9,9 @@ conftest:
 
 The kernels form squared distances exactly as the plain versions do, so
 nearest-neighbor indices and distances and all counts are compared for
-equality; other sums differ only by summation order (stated below)."""
+equality; other sums differ only by summation order (stated below).  The
+roofline probe's two kernels (``count_within``, ``adj_stack``) are held to
+their plain versions the same way."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 
 from mulls_tpu_torch.ops import kernels
 from mulls_tpu_torch.ops.neighbors import cov_from_moments
+from mulls_tpu_torch.tools import roofline as rf
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +220,102 @@ def test_wrappers_refuse_mixed_devices(dev):
     q, qm, p, pm = _clouds(dev, 8, 20, 40)
     with pytest.raises(ValueError):
         kernels.nn(q, qm, p.cpu(), pm.cpu())
+
+
+# --- the roofline probe's kernels (mulls_tpu_torch/tools/roofline.py)
+
+# below, at and above count_within's tile (256), stage (256) and chunk
+# (512), and adj_stack's tile (128), stage (64), mma step (16) and chunk
+# (2048)
+_PROBE_SIZES = [(1, 1), (127, 63), (128, 64), (129, 65), (255, 511),
+                (256, 512), (257, 513), (130, 2049), (700, 5000),
+                (300, 9000)]
+
+
+def _probe_cloud(dev, seed, qn, pn):
+    """~30 neighbours a query, 10 % invalid support."""
+    q, _, p, pm = _clouds(dev, seed, qn, pn, extent=6.0)
+    r2 = torch.full((qn,), 1.5, device=dev)
+    return q, p, pm, r2
+
+
+@pytest.mark.parametrize("qn,pn", _PROBE_SIZES)
+def test_count_within_kernel_equals_plain(dev, qn, pn):
+    q, p, pm, r2 = _probe_cloud(dev, 20, qn, pn)
+    got = rf.count_within(q, p, pm, r2)
+    assert got.dtype == torch.float32 and got.shape == (qn,)
+    assert torch.equal(got, rf.count_within_plain(q, p, pm, r2))
+    # the scratch is left at zero: a second launch gives the same counts
+    assert torch.equal(rf.count_within(q, p, pm, r2), got)
+
+
+@pytest.mark.parametrize("c", [16, 48, 128])
+@pytest.mark.parametrize("qn,pn", _PROBE_SIZES)
+def test_adj_stack_kernel_equals_plain(dev, c, qn, pn):
+    q, p, pm, r2 = _probe_cloud(dev, 21, qn, pn)
+    g = torch.Generator(device=dev).manual_seed(c)
+    # column-distinct integers (|value| <= 256, exact in bf16): the sums are
+    # exact, and a transposed or misplaced fragment shows
+    ints = (torch.arange(1, c + 1, device=dev, dtype=torch.float32)[None, :]
+            * torch.randint(-2, 3, (pn, 1), generator=g, device=dev)
+            ).to(torch.bfloat16)
+    got = rf.adj_stack(q, p, pm, r2, ints)
+    assert got.dtype == torch.float32 and got.shape == (qn, c)
+    assert torch.equal(got, rf.adj_stack_plain(q, p, pm, r2, ints))
+    # random bf16: fp32 sums in another order, rtol 1e-5 and atol 1e-5 x
+    # the sum of |terms|
+    f = torch.randn((pn, c), generator=g, device=dev).to(torch.bfloat16)
+    got = rf.adj_stack(q, p, pm, r2, f)
+    want = rf.adj_stack_plain(q, p, pm, r2, f)
+    terms = rf.adj_stack_plain(q, p, pm, r2, f.abs())
+    assert torch.all((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * terms)
+    assert torch.equal(rf.adj_stack(q, p, pm, r2, f), got)
+
+
+def test_probe_kernels_with_no_valid_support(dev):
+    q, p, _, r2 = _probe_cloud(dev, 22, 300, 5000)
+    pm = torch.zeros(5000, dtype=torch.bool, device=dev)
+    assert torch.all(rf.count_within(q, p, pm, r2) == 0)
+    f = torch.ones((5000, 32), dtype=torch.bfloat16, device=dev)
+    assert torch.all(rf.adj_stack(q, p, pm, r2, f) == 0)
+
+
+def test_probe_kernels_repeat_their_bits_at_the_probe_shape(dev):
+    x = rf.probe_inputs(matmul_n=8)
+    q = torch.from_numpy(x["q_map"]).to(dev)
+    p = torch.from_numpy(x["p"]).to(dev)
+    pm = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+    r2 = torch.ones(q.shape[0], device=dev)
+    f = torch.randn((p.shape[0], 128), device=dev).to(torch.bfloat16)
+    rf.reset_launch_counts()
+    a, b = rf.adj_stack(q, p, pm, r2, f), rf.adj_stack(q, p, pm, r2, f)
+    c, d = rf.count_within(q, p, pm, r2), rf.count_within(q, p, pm, r2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert torch.equal(c, rf.count_within_plain(q, p, pm, r2))
+    assert rf.launch_counts() == {"count_within": 2, "adj_stack": 2}
+
+
+def test_probe_wrappers_launch_on_cuda_and_refuse_the_rest(dev, monkeypatch):
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(rf, "count_within_plain", refuse)
+    monkeypatch.setattr(rf, "adj_stack_plain", refuse)
+    q, p, pm, r2 = _probe_cloud(dev, 23, 50, 200)
+    f = torch.ones((200, 16), dtype=torch.bfloat16, device=dev)
+    rf.reset_launch_counts()
+    rf.count_within(q, p, pm, r2)
+    rf.adj_stack(q, p, pm, r2, f)
+    torch.cuda.synchronize()
+    assert rf.launch_counts() == {"count_within": 1, "adj_stack": 1}
+    with pytest.raises(TypeError):
+        rf.adj_stack(q, p, pm, r2, f.float())
+    with pytest.raises(TypeError):
+        rf.count_within(q.double(), p, pm, r2)
+    with pytest.raises(ValueError):  # neither CPU nor CUDA
+        rf.count_within(*(t.to("meta") for t in (q, p, pm, r2)))
+    with pytest.raises(ValueError):  # devices mixed
+        rf.adj_stack(q, p.cpu(), pm.cpu(), r2, f)
+    assert rf.launch_counts() == {"count_within": 1, "adj_stack": 1}
