@@ -12,7 +12,11 @@ Phases (each prints its own line; any failure exits non-zero):
               synthetic world below), with the tolerances stated beside
               each check, and two launches against each other (same
               bits); nn also as one grouped launch for the five ICP
-              classes against five single launches.  Times the kernel on
+              classes against five single launches; pca_moments on the
+              frame PCA's own call (one feature stage: 10240 queries in
+              Morton order x 20480), on random queries of the same
+              support, and at the map refresh's 1536 x 1536 and
+              1024 x 1024 (r = 1.8, a pillar map).  Times the kernel on
               the device (torch.profiler) and per call with CUDA events,
               the plain version and, where one exists, a library
               yardstick (timed here only).
@@ -21,8 +25,9 @@ Phases (each prints its own line; any failure exits non-zero):
               the probe's own inputs, and on a dense case from the scan
               (10240 x 20480 at r = 0.7) with ones, integer and random bf16
               stacks, each twice for the same bits; then the same dense
-              case timed for pca_moments, count_within, moments (the
-              hit-sparse form) and adj_stack (the dense form); then the
+              case timed at r = 0.7, 1.0, 1.8 and 3.0 for pca_moments,
+              count_within (the floor), moments C=10 (the hit-sparse
+              form) and adj_stack C=16 and 128 (the dense form); then the
               probe itself (``mulls_tpu_torch.tools.roofline.run_probe``)
               with its launch counts, which must be > 0.
 5. main     — ``OdometryPipeline`` at full width (``MullsConfig()``
@@ -149,6 +154,81 @@ def render_scan(world: np.ndarray, pose: np.ndarray, n_raw: int,
             "mask": mask}
 
 
+def post_map(world: np.ndarray, pose: np.ndarray, n: int,
+             rng: np.random.Generator) -> tuple:
+    """A pillar map as the local map holds it: ``n`` points of 16 a post on
+    posts within 50 m of ``pose`` (the last quarter of ``make_world``'s
+    rows, 60 a post), in the pose's frame, 3 % of them masked."""
+    posts = world[len(world) // 2 + len(world) // 4:]
+    inv = np.linalg.inv(pose)
+    local = posts @ inv[:3, :3].T.astype(np.float32) \
+        + inv[:3, 3].astype(np.float32)
+    post_id = np.arange(len(posts)) // 60
+    near = np.unique(post_id[np.linalg.norm(local[:, :2], axis=1) < 50.0])
+    ids = rng.choice(near, -(-n // 16), replace=False)
+    rows = np.concatenate([rng.choice(np.where(post_id == i)[0], 16,
+                                      replace=False) for i in ids])[:n]
+    return local[rows], rng.uniform(size=n) >= 0.03
+
+
+class PcaTap:
+    """Records the arguments of ``kernels.pca_moments`` as ``ops.pca``
+    calls it, while entered (every other name passes through)."""
+
+    def __enter__(self):
+        from mulls_tpu_torch.ops import kernels
+        from mulls_tpu_torch.ops import pca
+        self.module, self.kernels, self.calls = pca, kernels, []
+        pca.kernels = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.kernels = self.kernels
+
+    def __getattr__(self, name):
+        return getattr(self.kernels, name)
+
+    def pca_moments(self, *args):
+        self.calls.append(args)
+        return self.kernels.pca_moments(*args)
+
+
+def pca_cases(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
+              seed: int) -> dict:
+    """``pca_moments``' inputs ``(q, p, p_mask, r2)`` on ``dev``:
+    the frame PCA's call as the main path makes it (one feature stage at
+    full width on ``scan``: 10240 queries in Morton order against the 20480
+    unground points, r = 0.7), the same support with a random subset of it
+    as queries, and the map refresh's shapes (r = 1.8) on ``post_map``
+    clouds at the pillar (1536) and beam (1024) capacities.  Every checkout
+    that has the feature stage gets the same numbers from the same seed."""
+    import torch
+
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.core.cloud import pack_raw_host
+    from mulls_tpu_torch.pipeline import odometry as odo
+    cfg = MullsConfig()
+    state = odo.init_state(cfg, dev)
+    with PcaTap() as tap:
+        odo._feature_stage(state, pack_raw_host(scan, with_ts=False).to(dev),
+                           cfg, state.draws)
+    q, p, pm, r2 = tap.calls[0]
+    shape = f"{q.shape[0]}x{p.shape[0]}"
+    rng = np.random.default_rng(seed + 4)
+    sel = torch.as_tensor(rng.choice(p.shape[0], q.shape[0], replace=False),
+                          device=dev)
+    cases = {f"{shape} Morton": (q, p, pm, r2),
+             f"{shape} random": (p[sel].contiguous(), p, pm, r2)}
+    for n in (1536, 1024):
+        xyz, m = post_map(world, pose, n, rng)
+        pt = torch.as_tensor(xyz, device=dev)
+        cases[f"{n}x{n} refresh"] = (pt, pt, torch.as_tensor(m, device=dev),
+                                     torch.full((n,), 1.8 ** 2,
+                                                dtype=torch.float32,
+                                                device=dev))
+    return cases
+
+
 # --------------------------------------------------------------------------
 # repeat check (the timing and bound helpers are the probe's, in
 # mulls_tpu_torch/tools/roofline.py)
@@ -166,10 +246,10 @@ def same_bits(fn) -> bool:
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def kernel_phase(scan: dict, dev, seed: int) -> list:
+def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
+                 seed: int) -> list:
     import torch
     from mulls_tpu_torch.ops import kernels
-    from mulls_tpu_torch.ops.neighbors import cov_from_moments
     from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
 
     rng = np.random.default_rng(seed + 1)
@@ -311,13 +391,24 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
                  "plain_ms": plain, "library_ms": None, "bound_ms": b,
                  "bound_by": by})
 
-    # --- pca_moments: the frame's PCA, 10240 queries (subset of the
-    # support) x 20480
-    p, pm, psel = cloud(20480, 0.97)
-    qsel = rng.choice(20480, 10240, replace=False)
-    q = p[torch.as_tensor(qsel, device=dev)].contiguous()
-    qm = pm[torch.as_tensor(qsel, device=dev)].contiguous()
-    r2 = torch.full((10240,), 0.7 ** 2, dtype=torch.float32, device=dev)
+    # --- pca_moments: the frame's PCA as the main path calls it (Morton
+    # order), the same support with random queries, and the map refresh's
+    # two shapes at r = 1.8.
+    for shape, (q, p, pm, r2) in pca_cases(scan, world, pose, dev,
+                                           seed).items():
+        rows.append(pca_check(shape, q, p, pm, r2))
+    return rows
+
+
+def pca_check(shape: str, q, p, pm, r2) -> dict:
+    """``pca_moments`` against its plain version on one input (counts exact,
+    covariances to 1e-6 m^2, lambda_3 to 1 %, same bits twice), timed."""
+    import torch
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.ops.neighbors import cov_from_moments
+    from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
+
+    qn, pn = q.shape[0], p.shape[0]
     ck, sk, ok_ = kernels.pca_moments(q, p, pm, r2)
     cp, sp, op = kernels.pca_moments_plain(q, p, pm, r2)
     torch.cuda.synchronize()
@@ -331,40 +422,55 @@ def kernel_phase(scan: dict, dev, seed: int) -> list:
     # query lose it: at 60 m, fp32 rounding alone is ~2e-4 m^2.
     lam_k = torch.linalg.eigvalsh(cov_k.double())[:, 0]
     lam_p = torch.linalg.eigvalsh(cov_p.double())[:, 0]
-    full = qm & (cp >= 5)
+    full = cp >= 5
     lam_err = float(((lam_k - lam_p).abs() / (lam_p.abs() + 1e-6))[full]
                     .max())
     lam_ok = bool(torch.all(((lam_k - lam_p).abs()
                              <= 1e-2 * lam_p.abs() + 1e-8)[full]))
     if not (torch.equal(ck, cp) and err <= 1e-6 and lam_ok):
-        raise AssertionError(f"pca_moments: counts differ, cov err {err} "
-                             f"or lambda_3 relative err {lam_err}")
+        raise AssertionError(f"pca_moments {shape}: counts differ, cov err "
+                             f"{err} or lambda_3 relative err {lam_err}")
     if not same_bits(lambda: kernels.pca_moments(q, p, pm, r2)):
-        raise AssertionError("pca_moments: two launches differ")
+        raise AssertionError(f"pca_moments {shape}: two launches differ")
     ms = device_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)[0]
     ev = time_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)
     plain = time_ms(lambda: kernels.pca_moments_plain(q, p, pm, r2), 3)
     hits = float(ck.sum())
-    flops = 10.0 * 10240 * 20480 + 15.0 * hits
-    nbytes = 10240 * 16 + 20480 * 13 + 10240 * 40
+    # 10 operations a pair for the distance and the compare, 15 a hit (the
+    # probe's count)
+    flops = 10.0 * qn * pn + 15.0 * hits
+    nbytes = qn * 16 + pn * 13 + qn * 40
     b, by = bound_ms(flops, nbytes)
-    print(f"[kernels] pca_moments 10240x20480: counts exact, max|cov err| "
+    print(f"[kernels] pca_moments {shape} (r = "
+          f"{float(r2.sqrt().max()):.2f}, {hits / qn:.2f} hits a query, chunk "
+          f"{kernels.pca_chunk(qn, pn)}): counts exact, max|cov err| "
           f"{err:.3g} m^2, max lambda_3 relative err {lam_err:.3g} "
           f"({int(full.sum())} queries, median lambda_3 "
           f"{float(lam_p[full].median()):.3g} m^2), same bits twice; "
           f"kernel {ms:.4f} ms on the device ({ev:.4f} ms with CUDA "
           f"events), plain {plain:.4f} ms, library none, bound {b:.5f} ms "
           f"({by})", flush=True)
-    rows.append({"name": "pca_moments", "shape": "10240x20480",
-                 "max_abs_err": err, "ms": ms, "event_ms": ev,
-                 "plain_ms": plain, "library_ms": None, "bound_ms": b,
-                 "bound_by": by})
-    return rows
+    return {"name": "pca_moments", "shape": shape, "max_abs_err": err,
+            "ms": ms, "event_ms": ev, "plain_ms": plain, "library_ms": None,
+            "bound_ms": b, "bound_by": by, "hits_per_query": hits / qn}
 
 
 # --------------------------------------------------------------------------
 # phase 4: the roofline probe and its two kernels
 # --------------------------------------------------------------------------
+
+def dense_case(scan: dict, rng: np.random.Generator, dev) -> tuple:
+    """(q, p, p_mask) on ``dev``: 20480 of the scan's points, 3 % masked,
+    and 10240 of them as queries."""
+    import torch
+    pts = scan["xyz"][np.where(scan["mask"])[0]]
+    p = torch.as_tensor(pts[rng.choice(len(pts), 20480, replace=False)],
+                        device=dev)
+    pm = torch.as_tensor(rng.uniform(size=20480) < 0.97, device=dev)
+    sel = torch.as_tensor(rng.choice(20480, 10240, replace=False),
+                          device=dev)
+    return p[sel].contiguous(), p, pm
+
 
 def probe_phase(scan: dict, dev, seed: int) -> dict:
     import torch
@@ -430,12 +536,7 @@ def probe_phase(scan: dict, dev, seed: int) -> dict:
     # (b) dense: the frame PCA's shape, 10240 queries (a subset of the
     # support) x 20480 scan points at r = 0.7, as the pca_moments check
     rng = np.random.default_rng(seed + 3)
-    pts = scan["xyz"][np.where(scan["mask"])[0]]
-    p = t(pts[rng.choice(len(pts), 20480, replace=False)])
-    pm = t(rng.uniform(size=20480) < 0.97, torch.bool)
-    sel = torch.as_tensor(rng.choice(20480, 10240, replace=False),
-                          device=dev)
-    q = p[sel].contiguous()
+    q, p, pm = dense_case(scan, rng, dev)
     r2 = torch.full((10240,), 0.7 ** 2, dtype=torch.float32, device=dev)
     cols = np.arange(1, 65, dtype=np.float32)[None, :]
     stacks = [
@@ -451,23 +552,29 @@ def probe_phase(scan: dict, dev, seed: int) -> dict:
          False)]
     err_b = check("dense 10240x20480", q, p, pm, r2, stacks)
 
-    # the dense case timed for each form of the neighbourhood sum
-    hits = float(rf.count_within_plain(q, p, pm, r2).sum())
+    # the dense case timed for each form of the neighbourhood sum, as the
+    # radius (and so the hits a query) grows: pca_moments and moments with
+    # ten columns are hit-sparse, adj_stack dense, count_within the floor
     f10 = t(rng.uniform(size=(20480, 10)))
-    dense = {"hits_per_query": hits / 10240}
-    for name, fn in (
-            ("pca_moments", lambda: kernels.pca_moments(q, p, pm, r2)),
-            ("count_within", lambda: rf.count_within(q, p, pm, r2)),
-            ("moments C=10", lambda: kernels.moments(q, p, pm, r2, f10)),
-            ("adj_stack C=16", lambda: rf.adj_stack(q, p, pm, r2,
-                                                    stacks[2][1])),
-            ("adj_stack C=128", lambda: rf.adj_stack(q, p, pm, r2,
-                                                     stacks[3][1]))):
-        dense[name] = rf.device_ms(fn, 20)[0]
-    print("[probe] dense 10240x20480 (r = 0.7, "
-          f"{hits / 10240:.1f} hits a query), device ms: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in dense.items()
-                      if k != "hits_per_query"), flush=True)
+    dense = {}
+    for r in (0.7, 1.0, 1.8, 3.0):
+        r2 = torch.full((10240,), r ** 2, dtype=torch.float32, device=dev)
+        hits = float(rf.count_within_plain(q, p, pm, r2).sum())
+        row = {"hits_per_query": hits / 10240}
+        for name, fn in (
+                ("pca_moments", lambda: kernels.pca_moments(q, p, pm, r2)),
+                ("count_within", lambda: rf.count_within(q, p, pm, r2)),
+                ("moments C=10", lambda: kernels.moments(q, p, pm, r2, f10)),
+                ("adj_stack C=16", lambda: rf.adj_stack(q, p, pm, r2,
+                                                        stacks[2][1])),
+                ("adj_stack C=128", lambda: rf.adj_stack(q, p, pm, r2,
+                                                         stacks[3][1]))):
+            row[name] = rf.device_ms(fn, 20)[0]
+        dense[f"r={r}"] = row
+        print(f"[probe] dense 10240x20480 (r = {r}, {hits / 10240:.1f} hits "
+              f"a query), device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                          if k != "hits_per_query"), flush=True)
 
     # the probe itself, through its entry point's function; its launches
     rf.reset_launch_counts()
@@ -954,7 +1061,7 @@ def main() -> int:
 
     # --- phase 3: kernels vs plain
     try:
-        rows = kernel_phase(frames[0], dev, SEED)
+        rows = kernel_phase(frames[0], world, gt[0], dev, SEED)
     except AssertionError as e:
         return fail(f"kernel check: {e}")
 

@@ -4,11 +4,10 @@
 // it.
 //
 // Support is staged in shared memory as float4 (x, y, z, valid) so that
-// one 16-byte load per point feeds every thread that reads it.  nn.cu and
-// moments.cu fill the x, y, z words with cp.async (4 bytes each: the
-// [P, 3] rows and the callers' views give no 16-byte alignment) and write
-// the valid word from a mask byte loaded into a register one stage ahead;
-// count_within.cu and adj_stack.cu stage the same way.
+// one 16-byte load per point feeds every thread that reads it.  Every
+// kernel fills the x, y, z words with cp.async (4 bytes each: the [P, 3]
+// rows and the callers' views give no 16-byte alignment) and writes the
+// valid word from a mask byte loaded into a register one stage ahead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,18 +30,6 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz,
   const float dz = __fsub_rn(qz, p.z);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
-}
-
-// Cooperative copy of support rows [base, base + len) into shared memory:
-// xyz from the [P, 3] array, w = 1 for valid rows and 0 for masked ones.
-__device__ __forceinline__ void load_support_tile(
-    float4* tile, const float* __restrict__ p,
-    const uint8_t* __restrict__ p_mask, int base, int len) {
-  for (int t = threadIdx.x; t < len; t += blockDim.x) {
-    const int j = base + t;
-    tile[t] = make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2],
-                          p_mask[j] ? 1.0f : 0.0f);
-  }
 }
 
 // --- asynchronous global -> shared copies (cp.async, sm_80 and later) ---

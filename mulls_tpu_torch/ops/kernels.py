@@ -28,10 +28,10 @@ where the kernel is launched and nowhere else.  ``nn.launches`` counts every
 launch of the nn kernel, ``nn_grouped.launches`` those made for
 :func:`nn_grouped`.
 
-The nn and moments kernels merge across support chunks through scratch
-kept per device and stream (:func:`_scratch`): merge words and arrival
-counters that every launch leaves as it found them, so no launch needs a
-memset.
+The nn, moments and pca_moments kernels merge across support chunks
+through scratch kept per device and stream (:func:`_scratch`): merge words
+and arrival counters that every launch leaves as it found them, so no
+launch needs a memset.
 
 The squared distance is ``((q-p)_x^2 + (q-p)_y^2) + (q-p)_z^2`` with every
 operation rounded on its own, in the kernels and in the plain versions
@@ -68,6 +68,9 @@ NN_MAX_GROUP = 8  # problems in one nn launch
 NN_TILE_Q, NN_CHUNK = 128, 1024  # queries x support points per nn block
 MOMENTS_MAX_C = 16  # templated accumulator widths in csrc/moments.cu
 MOMENTS_TILE_Q, MOMENTS_CHUNK = 128, 1024
+# csrc/pca_moments.cu: queries per tile, the largest support chunk, points
+# per shared-memory stage
+PCA_TILE_Q, PCA_CHUNK, PCA_STAGE = 128, 1024, 256
 COUNT_TILE_Q, COUNT_CHUNK = 256, 512  # csrc/count_within.cu
 ADJ_MAX_C, ADJ_TILE_Q, ADJ_CHUNK = 128, 128, 2048  # csrc/adj_stack.cu
 
@@ -162,7 +165,8 @@ def library() -> ctypes.CDLL:
     lib.mulls_moments.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
                                   vp, vp, vp, vp]
     lib.mulls_moments.restype = i
-    lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp,
+                                      vp, vp, vp]
     lib.mulls_pca_moments.restype = i
     lib.mulls_count_within.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
     lib.mulls_count_within.restype = i
@@ -173,6 +177,8 @@ def library() -> ctypes.CDLL:
                       (NN_MAX_GROUP, NN_TILE_Q, NN_CHUNK)),
                      (lib.mulls_moments_geometry,
                       (MOMENTS_MAX_C, MOMENTS_TILE_Q, MOMENTS_CHUNK)),
+                     (lib.mulls_pca_moments_geometry,
+                      (PCA_TILE_Q, PCA_CHUNK, PCA_STAGE)),
                      (lib.mulls_count_within_geometry,
                       (COUNT_TILE_Q, COUNT_CHUNK)),
                      (lib.mulls_adj_stack_geometry,
@@ -487,6 +493,25 @@ def pca_moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     return torch.cat(cnt), torch.cat(s1), torch.cat(s2)
 
 
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+PCA_MIN_CHUNK = 128  # half a stage: 8 votes a lane
+
+
+def pca_chunk(qn: int, pn: int) -> int:
+    """Support points per block of ``csrc/pca_moments.cu``: PCA_CHUNK,
+    halved while the grid has fewer blocks than the card has SMs, down to
+    PCA_MIN_CHUNK.  The frame's 10240 x 20480 keeps 1024 (1600 blocks);
+    the map refresh's 1536 x 1536 takes 128 (144 blocks), its 1024 x 1024
+    also 128 (64 blocks).  Below 128 points a block's fixed work (its
+    queries, the lane reduction, its partial row, the tile's merge) would
+    outweigh its pairs."""
+    tiles = -(-qn // PCA_TILE_Q)
+    chunk = PCA_CHUNK
+    while chunk > PCA_MIN_CHUNK and tiles * -(-pn // chunk) < _SMS:
+        chunk //= 2
+    return chunk
+
+
 def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
                 p_mask: torch.Tensor, r2: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -496,7 +521,10 @@ def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     shift-invariant).
 
     CUDA kernel: ``csrc/pca_moments.cu`` (replaces ``pca_moments_pallas``,
-    ``mulls_tpu/ops/kernels.py:269-347``)."""
+    ``mulls_tpu/ops/kernels.py:269-347``): query tiles x support chunks
+    (:func:`pca_chunk`), a warp vote per four points so that a miss costs
+    only the distance and the compare, sums centred at each query in fp32
+    and merged in chunk order, so two launches give the same bits."""
     dev = q_xyz.device
     qn, pn = q_xyz.shape[0], p_xyz.shape[0]
     _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
@@ -509,9 +537,17 @@ def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     cnt = torch.empty((qn,), dtype=torch.float32, device=dev)
     s1 = torch.empty((qn, 3), dtype=torch.float32, device=dev)
     s2 = torch.empty((qn, 6), dtype=torch.float32, device=dev)
+    if qn == 0:  # nothing to launch
+        return cnt, s1, s2
+    chunk = pca_chunk(qn, pn)
+    # per-chunk partial sums, added in chunk order by the kernel
+    partial = torch.empty((max(1, -(-pn // chunk)), qn, 10),
+                          dtype=torch.float32, device=dev)
+    _, counters = _scratch(q_xyz, 0, -(-qn // PCA_TILE_Q))
     _check_launch(lib.mulls_pca_moments(
-        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn, _ptr(cnt),
-        _ptr(s1), _ptr(s2), _stream(q_xyz)), "pca_moments")
+        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn, chunk,
+        _ptr(partial), _ptr(counters), _ptr(cnt), _ptr(s1), _ptr(s2),
+        _stream(q_xyz)), "pca_moments")
     pca_moments.launches += 1
     return cnt, s1, s2
 

@@ -152,7 +152,12 @@ def pca_features(q_xyz: torch.Tensor, q_mask: torch.Tensor,
     qf = q_mask.to(torch.float32)
     count = cnt * qf
     cov = nbr.cov_from_moments(count, sx * qf[:, None], so * qf[:, None])
-    vals, vecs = eigh_sym3x3(cov)
+    # the closed form in float64, then back to float32: in float32 its
+    # arccos near a repeated eigenvalue (a plane's l1 ~ l2) turns the last
+    # ulp of the covariance into ~1e-4 of curvature, so the order in which
+    # the moments were summed would pick features
+    vals, vecs = eigh_sym3x3(cov.double())
+    vals, vecs = vals.float(), vecs.float()
     vals = torch.clamp(vals, min=0.0)
     s = torch.clamp(vals[:, 0] + vals[:, 1] + vals[:, 2], min=_EPS)
     l1 = torch.clamp(vals[:, 0], min=_EPS)

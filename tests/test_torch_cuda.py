@@ -41,8 +41,11 @@ def _clouds(dev, seed, qn, pn, valid=0.9, extent=40.0):
     return [torch.from_numpy(a).to(dev) for a in (q, qm, p, pm)]
 
 
-# sizes below, at and above pca_moments' block (64) and tile (1024)
-_SIZES = [(1, 1), (63, 257), (64, 1024), (700, 5000), (1200, 8192)]
+# sizes below, at and above the query tile (128), the stage (256) and the
+# largest support chunk (1024) of pca_moments and nn; 1536 x 1536 is the map
+# refresh's shape, where pca_moments halves its chunk to 128
+_SIZES = [(1, 1), (127, 255), (128, 256), (129, 1025), (700, 5000),
+          (1536, 1536), (8192, 8192)]
 # below, at and above nn's query tile (128), stage (256) and chunk (1024)
 _NN_SIZES = [(1, 1), (127, 255), (128, 256), (129, 257), (128, 1024),
              (129, 1025), (700, 5000), (1200, 8192)]
@@ -163,6 +166,11 @@ def test_moments_kernel_rejects_wide_features(dev):
                                    device=dev))
 
 
+def _same_bits(fn) -> bool:
+    a, b = fn(), fn()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("qn,pn", _SIZES)
 def test_pca_moments_kernel_equals_plain(dev, qn, pn):
     q, _, p, pm = _clouds(dev, 6, qn, pn, extent=10.0)
@@ -174,6 +182,56 @@ def test_pca_moments_kernel_equals_plain(dev, qn, pn):
     # query and summed in fp32 in another order: a few ulp of ~1 m^2
     assert torch.allclose(cov_from_moments(ck, sk, ok),
                           cov_from_moments(cp, sp, op), rtol=1e-6, atol=1e-6)
+    # chunks merged in chunk order, no float atomics
+    assert _same_bits(lambda: kernels.pca_moments(q, p, pm, r2))
+
+
+def test_pca_moments_kernel_with_a_radius_per_query(dev):
+    """Distance-adaptive radii: 0.5 to 3 m, one a query."""
+    q, _, p, pm = _clouds(dev, 10, 3000, 9000, extent=10.0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    r2 = (0.5 + 2.5 * torch.rand((3000,), generator=g, device=dev)) ** 2
+    ck, sk, ok = kernels.pca_moments(q, p, pm, r2)
+    cp, sp, op = kernels.pca_moments_plain(q, p, pm, r2)
+    assert torch.equal(ck, cp)
+    assert torch.allclose(cov_from_moments(ck, sk, ok),
+                          cov_from_moments(cp, sp, op), rtol=1e-6, atol=1e-6)
+    assert _same_bits(lambda: kernels.pca_moments(q, p, pm, r2))
+
+
+def test_pca_moments_kernel_when_every_pair_hits(dev):
+    """r covers the whole 2 m cube: every vote fires and every valid pair
+    adds, across five support chunks."""
+    q, _, p, pm = _clouds(dev, 12, 300, 5000, extent=1.0)
+    r2 = torch.full((300,), 100.0, device=dev)
+    ck, sk, ok = kernels.pca_moments(q, p, pm, r2)
+    assert torch.all(ck == pm.sum().float())
+    cp, sp, op = kernels.pca_moments_plain(q, p, pm, r2)
+    assert torch.equal(ck, cp)
+    # ~4500 terms of up to ~1 m^2 a query, summed in fp32 in another order:
+    # the sums agree to ~1e-5 relative, the covariances (~0.33 m^2) to well
+    # within 1e-6 m^2 once divided by the count
+    want = kernels.pca_moments_plain(q.double(), p.double(), pm, r2.double())
+    for got, ref in zip((sk, ok), want[1:]):
+        assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-3)
+    assert torch.allclose(cov_from_moments(ck, sk, ok).double(),
+                          cov_from_moments(*want), rtol=1e-5, atol=1e-6)
+    assert _same_bits(lambda: kernels.pca_moments(q, p, pm, r2))
+
+
+def test_pca_moments_kernel_edges(dev):
+    """No valid support (zeros), no support at all, and no queries (no
+    launch)."""
+    q, _, p, _ = _clouds(dev, 13, 300, 5000)
+    r2 = torch.full((300,), 9.0, device=dev)
+    none = torch.zeros(5000, dtype=torch.bool, device=dev)
+    for pp, pm in ((p, none), (p[:0], none[:0])):
+        ck, sk, ok = kernels.pca_moments(q, pp, pm, r2)
+        assert torch.all(ck == 0) and torch.all(sk == 0) and torch.all(ok == 0)
+    kernels.reset_launch_counts()
+    ck, sk, ok = kernels.pca_moments(q[:0], p, none, r2[:0])
+    assert ck.shape == (0,) and sk.shape == (0, 3) and ok.shape == (0, 6)
+    assert kernels.launch_counts()["pca_moments"] == 0
 
 
 def test_pca_moments_kernel_keeps_plane_thickness_far_out(dev):

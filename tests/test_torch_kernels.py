@@ -184,6 +184,25 @@ def test_pca_moments_centred_keeps_plane_thickness_far_out():
     assert np.all(np.abs(lam3 - 4e-6) < 2e-6)
 
 
+def test_pca_chunk_fills_the_card_and_stays_whole():
+    """The chunk of csrc/pca_moments.cu: the largest for the frame's PCA,
+    halved for the map refresh's small shapes until the grid covers the
+    H100's 132 SMs or the chunk reaches its floor; always whole votes."""
+    assert kernels.pca_chunk(10240, 20480) == kernels.PCA_CHUNK
+    assert kernels.pca_chunk(1536, 1536) == 128  # 12 x 12 = 144 blocks
+    assert kernels.pca_chunk(1024, 1024) == kernels.PCA_MIN_CHUNK
+    for qn in (0, 1, 127, 129, 700, 1536, 4096, 10240, 20480):
+        for pn in (0, 1, 255, 1025, 5000, 20480):
+            chunk = kernels.pca_chunk(qn, pn)
+            assert kernels.PCA_MIN_CHUNK <= chunk <= kernels.PCA_CHUNK
+            assert chunk % 16 == 0  # 4 points a lane per vote, 4 lanes
+            tiles = -(-qn // kernels.PCA_TILE_Q)
+            assert chunk == kernels.PCA_MIN_CHUNK or \
+                tiles * -(-pn // chunk) >= 132
+            if chunk < kernels.PCA_CHUNK:  # halved only while too few
+                assert tiles * -(-pn // (2 * chunk)) < 132
+
+
 def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     q, qm, p, pm = _t(*_clouds(7, qn=50, pn=300))
     kernels.reset_launch_counts()

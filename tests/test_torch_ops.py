@@ -188,6 +188,31 @@ def test_pca_features_matches_reference():
     assert planar.sum() > 100 and np.mean(dots > 0.99) > 0.98
 
 
+def test_pca_features_do_not_depend_on_the_summation_order():
+    """The same support in reversed order sums each query's moments in
+    another order (last-ulp differences, as between the CUDA kernel and
+    the plain version).  The closed form runs in float64, so curvature,
+    linearity and planarity move by ~1e-7; in float32 its arccos near a
+    plane's repeated eigenvalue turned such ulps into ~1e-4, enough to
+    reorder the curvature top-k."""
+    cfg = ge._small_cfg()
+    d = ge._synthetic_raw(cfg, seed=4)
+    valid = np.where(d["mask"])[0]
+    sel = np.random.default_rng(20).choice(valid, 8000, replace=False)
+    p = torch.from_numpy(d["xyz"][sel])
+    q = p[:3000].clone()
+    qm = torch.ones(3000, dtype=torch.bool)
+    pm = torch.ones(8000, dtype=torch.bool)
+    a = tpca.pca_features(q, qm, p, pm, radius=1.0, min_k=7)
+    b = tpca.pca_features(q, qm, p.flip(0), pm, radius=1.0, min_k=7)
+    assert torch.equal(a.count, b.count)
+    v = a.valid
+    assert int(v.sum()) > 1000
+    for f in ("curvature", "linearity", "planarity"):
+        diff = (getattr(a, f) - getattr(b, f))[v].abs().max()
+        assert float(diff) < 1e-5, (f, float(diff))
+
+
 # --- voxel masks --------------------------------------------------------------
 
 def test_filter_masks_match_reference():
