@@ -50,6 +50,29 @@ Phases (each prints its own line; any failure exits non-zero):
               (feature / reg / map, a sync around each) and, from
               ``torch.profiler``, the device's busy share and the kernels
               that take the most device time.
+8. slam     — ``SlamPipeline`` at full width with loop closure on (the
+              default submap settings: 30 m submaps, min_submap_id_diff 8,
+              the ceres PGO) over 208 frames, 1.2 laps, of the urban loop
+              world of ``tools/synthetic_accuracy_bench.py`` (copied here
+              as numpy), then the end-of-run refinement.  Checks >= 90 %
+              code 1, adjacent edges = submaps - 1, >= 1 loop edge and each
+              within 0.5 m of the ground truth's relative pose, >= 1
+              accepted PGO, end error <= 2 %, every kernel launched on the
+              run and the back end's own nn launches > 0.  Prints frames/s
+              beside the main phase's odometry-only rate and ms per
+              boundary ladder, per loop candidate and per PGO.  Then
+              The same frames also run through odometry alone first, for
+              the rate without the back end, and the back end's m2m, loop
+              candidate and PGO are timed again alone on the card after
+              the run.  Then ``nn_grouped`` at the map-to-map shapes of one ``pair_m2m``
+              iteration between two of the run's submaps: bit-equal to the
+              plain version, same bits twice, timed against its bound and
+              ``cdist`` + ``min``.
+9. agree-slam — ``SlamPipeline`` on the card and on the CPU at the parity
+              tests' width with tests/test_pipeline.py's loop world and
+              config and the same draws: the same submap spans and edges,
+              per-frame motion within 5 cm / 0.5 deg and poses within
+              10 cm / 1 deg (the bounds of tests/test_torch_slam.py).
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1008,6 +1031,455 @@ def profile_phase(frames: list, cfg, dev, warm: int = 4, window: int = 4
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: SLAM with loop closure at full width (the back end's main path)
+# --------------------------------------------------------------------------
+
+# copied from tools/synthetic_accuracy_bench.py (build_world,
+# loop_trajectory, simulate without its hard-world options) as numpy: this
+# script imports only the port
+
+def build_loop_world(rng: np.random.Generator, half: float = 120.0
+                     ) -> np.ndarray:
+    """City block: ground plane, building walls on a street grid with
+    piecewise facade depth, irregular lampposts, parked-car boxes."""
+    pts = []
+    n_g = 900_000
+    pts.append(np.stack([
+        rng.uniform(-half, half, n_g), rng.uniform(-half, half, n_g),
+        0.04 * rng.normal(size=n_g) - 1.73], -1))
+    for cx in (-60.0, 0.0, 60.0):
+        for cy in (-60.0, 0.0, 60.0):
+            w = 22.0
+            h = float(rng.uniform(4.0, 14.0))
+            n_w = 26_000
+            side = rng.integers(0, 4, n_w)
+            u = rng.uniform(-w, w, n_w)
+            prof = rng.uniform(-1.2, 1.2, (4, 11))
+            seg = np.clip(((u + w) / (2 * w) * 11).astype(int), 0, 10)
+            d = np.full(n_w, w) + prof[side, seg] \
+                + 0.03 * rng.normal(size=n_w)
+            wx = cx + np.where(side == 0, d, np.where(side == 1, -d, u))
+            wy = cy + np.where(side < 2, u, np.where(side == 2, d, -d))
+            pts.append(np.stack([wx, wy, rng.uniform(-1.5, h, n_w)], -1))
+    posts = []
+    for lane in (-31.0, -29.0, 29.0, 31.0):
+        x = -half + rng.uniform(2, 8)
+        while x < half:
+            posts.append((x + rng.uniform(-0.8, 0.8),
+                          lane + rng.uniform(-0.6, 0.6)))
+            posts.append((lane + rng.uniform(-0.6, 0.6),
+                          x + rng.uniform(-0.8, 0.8)))
+            x += rng.uniform(7.0, 14.0)
+    per = 90
+    for (px, py) in posts:
+        z = np.linspace(-1.6, 4.2, per)
+        pts.append(np.stack([px + 0.015 * rng.normal(size=per),
+                             py + 0.015 * rng.normal(size=per), z], -1))
+    for _ in range(60):
+        lane = rng.choice([-33.5, 33.5])
+        along = rng.uniform(-half + 5, half - 5)
+        cx2, cy2 = (along, lane) if rng.random() < 0.5 else (lane, along)
+        n_c = 700
+        pts.append(np.stack([cx2 + rng.uniform(-2.2, 2.2, n_c),
+                             cy2 + rng.uniform(-0.9, 0.9, n_c),
+                             rng.uniform(-1.7, -0.2, n_c)], -1))
+    return np.concatenate(pts).astype(np.float32)
+
+
+def loop_trajectory(n_frames: int, step: float) -> np.ndarray:
+    """Rounded-rectangle loop in the street lanes around the center block
+    (30 m half-side, 8 m corner arcs: one lap is 226.3 m)."""
+    L, r = 30.0, 8.0
+    straight = 2 * (L - r)
+    arc = 0.5 * np.pi * r
+    total = 4 * (straight + arc)
+
+    def at(sd):
+        sd = sd % total
+        quarter = straight + arc
+        edge = int(sd // quarter)
+        f = sd - edge * quarter
+        if f <= straight:
+            d = f - (L - r)
+            return [(d, -L, 0.0), (L, d, np.pi / 2), (-d, L, np.pi),
+                    (-L, -d, -np.pi / 2)][edge]
+        a = (f - straight) / r
+        base = edge * np.pi / 2
+        cx = [(L - r, -L + r), (L - r, L - r),
+              (-L + r, L - r), (-L + r, -L + r)][edge]
+        ang = base - np.pi / 2 + a
+        return (cx[0] + r * np.cos(ang), cx[1] + r * np.sin(ang), base + a)
+
+    poses = []
+    for k in range(n_frames):
+        x, y, yaw = at(k * step)
+        T = np.eye(4)
+        c, si = np.cos(yaw), np.sin(yaw)
+        T[:3, :3] = [[c, -si, 0], [si, c, 0], [0, 0, 1]]
+        T[:3, 3] = [x, y, 0.0]
+        poses.append(T)
+    return np.stack(poses)
+
+
+def simulate(world: np.ndarray, pose: np.ndarray, n_raw: int,
+             rng: np.random.Generator, sensor_range: float = 65.0) -> dict:
+    """One scan: the world within range, downsampled to n_raw, in the
+    sensor frame with 1 cm noise and a world-stable pseudo-intensity."""
+    inv = np.linalg.inv(pose)
+    c = pose[:3, 3]
+    rough = (np.abs(world[:, 0] - c[0]) < sensor_range + 2) \
+        & (np.abs(world[:, 1] - c[1]) < sensor_range + 2)
+    w = world[rough]
+    local = w @ inv[:3, :3].T + inv[:3, 3]
+    r = np.linalg.norm(local[:, :2], axis=1)
+    sel = np.where((r < sensor_range) & (r > 1.8))[0]
+    if len(sel) > n_raw:
+        sel = rng.choice(sel, n_raw, replace=False)
+    pts = local[sel] + 0.01 * rng.normal(size=(len(sel), 3))
+    out = np.zeros((n_raw, 3), np.float32)
+    out[:len(sel)] = pts
+    mask = np.zeros(n_raw, bool)
+    mask[:len(sel)] = True
+    inten = np.zeros(n_raw, np.float32)
+    ws = w[sel]
+    inten[:len(sel)] = np.abs(np.sin(0.7 * ws[:, 0])
+                              + np.cos(1.3 * ws[:, 1])) * 120.0
+    return {"xyz": out, "intensity": inten,
+            "ts_ratio": np.linspace(0, 1, n_raw, dtype=np.float32),
+            "mask": mask}
+
+
+# the SLAM drive: 1.3 m/frame around the loop in segments of 4 frames
+# closes submaps of ~31 m, and the 9th submap (id 8, min_submap_id_diff
+# away from the first) ends ~3 m from submap 0's end frame, well inside
+# the 15 m candidate radius; 208 frames = 270 m, 1.2 laps
+SLAM_FRAMES, SLAM_STEP, SLAM_SEGMENT = 208, 1.3, 4
+LOOP_EDGE_BOUND_M = 0.5  # a loop edge against the truth (the bench: 1 m)
+
+
+def slam_phase(dev, seed: int, main_fps: float) -> dict:
+    """``SlamPipeline`` at full width with loop closure on: the default
+    config (30 m submaps, min_submap_id_diff 8, the ceres PGO), 208 frames
+    of the bench's urban loop, then the end-of-run refinement."""
+    import dataclasses
+
+    import torch
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
+    from mulls_tpu_torch.pipeline.slam import SlamPipeline
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 5)
+    world = build_loop_world(rng)
+    gt = loop_trajectory(SLAM_FRAMES, SLAM_STEP)
+    base = MullsConfig()
+    n_raw = base.shapes.n_raw
+    frames = [simulate(world, T, n_raw, rng) for T in gt]
+    counts = [int(f["mask"].sum()) for f in frames]
+    print(f"[slam] {SLAM_FRAMES} scans of the urban loop at {SLAM_STEP} "
+          f"m/frame, valid points min {min(counts)} max {max(counts)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    cfg = base.replace(submap=dataclasses.replace(
+        base.submap, loop_closure_detection_on=True))
+    # the same frames through odometry alone, for the rate without the
+    # back end
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    OdometryPipeline(base, device=dev).run(frames)
+    torch.cuda.synchronize()
+    odo_fps = SLAM_FRAMES / (time.perf_counter() - t0)
+    pipe = SlamPipeline(cfg, segment=SLAM_SEGMENT, device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.run(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    pipe.refine(res)
+    refine_ms = (time.perf_counter() - t0) * 1e3
+
+    be = res.backend
+    alone = backend_alone_ms(be, cfg, dev)
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    dist = float(np.sum(np.linalg.norm(np.diff(gt_rel[:, :3, 3], axis=0),
+                                       axis=1)))
+    end_err = float(np.linalg.norm(res.poses[-1, :3, 3]
+                                   - gt_rel[-1, :3, 3]))
+    odo_err = float(np.linalg.norm(res.poses_odom[-1, :3, 3]
+                                   - gt_rel[-1, :3, 3]))
+    fe = {s.sid: s.frame_end for s in be.submaps}
+    loops = []
+    for e in be.edges:
+        if e.kind != 2:
+            continue
+        T_gt = np.linalg.inv(gt_rel[fe[e.i]]) @ gt_rel[fe[e.j]]
+        dt, dr = motion_diff(np.asarray(e.T), T_gt)
+        loops.append({"i": e.i, "j": e.j, "t_err_m": dt, "r_err_deg": dr,
+                      "sigma": e.sigma, "confidence": e.confidence})
+    kinds = [e.kind for e in be.edges]
+    tm = be.timings
+    stat = {k: (float(np.mean(v)) if v else None, len(v))
+            for k, v in tm.items()}
+    bad = [(i, c) for i, c in enumerate(res.codes) if i > 0 and c != 1]
+    print(f"[slam] {SLAM_FRAMES} frames with loop closure in {wall:.2f} s: "
+          f"{SLAM_FRAMES / wall:.2f} frames/s (odometry only on the same "
+          f"frames: {odo_fps:.2f} frames/s; the main phase: {main_fps:.2f}); "
+          f"refine {refine_ms:.1f} ms", flush=True)
+    print(f"[slam] {len(bad)} frames after the first without code 1: "
+          f"{bad[:12]}", flush=True)
+    print(f"[slam] {len(be.submaps)} submaps "
+          f"{[(s.frame_begin, s.frame_end) for s in be.submaps]}; edges "
+          f"{[(e.i, e.j, e.kind) for e in be.edges]}; PGO accepted "
+          f"{be.pgo_accepted} times", flush=True)
+    for lp in loops:
+        print(f"[slam] loop edge {lp['i']}->{lp['j']}: {lp['t_err_m']:.4f} m, "
+              f"{lp['r_err_deg']:.3f} deg from the ground truth (sigma "
+              f"{lp['sigma']:.4f}, confidence {lp['confidence']:.3f})",
+              flush=True)
+    print(f"[slam] end error {end_err:.4f} m over {dist:.1f} m "
+          f"({100.0 * end_err / dist:.3f} %; odometry alone "
+          f"{odo_err:.4f} m)", flush=True)
+    print("[slam] host-clock ms, fetches included, on the boundary thread "
+          "(queued behind the front end on the shared stream): "
+          + ", ".join(f"{k} {m:.1f} x {n}" if m is not None
+                      else f"{k} none" for k, (m, n) in stat.items()),
+          flush=True)
+    print("[slam] the same work alone on the card after the run, host-clock "
+          "ms (median of 3, results fetched): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in alone.items()), flush=True)
+    print(f"[slam] launches on the whole run {launches}; the back end's own "
+          f"{be.launches}", flush=True)
+    for ev in be.events:
+        print(f"[slam]   {ev}", flush=True)
+    return {"frames": SLAM_FRAMES, "seconds": wall,
+            "fps": SLAM_FRAMES / wall, "odometry_fps": odo_fps,
+            "main_fps": main_fps,
+            "codes": res.codes, "bad": bad, "submaps": len(be.submaps),
+            "spans": [(s.frame_begin, s.frame_end) for s in be.submaps],
+            "edges": [(e.i, e.j, e.kind) for e in be.edges],
+            "adjacent": kinds.count(1), "loops": loops,
+            "pgo_accepted": be.pgo_accepted, "end_err_m": end_err,
+            "odometry_end_err_m": odo_err, "dist_m": dist,
+            "refine_ms": refine_ms, "timings_ms": tm, "alone_ms": alone,
+            "launches": launches,
+            "backend_launches": dict(be.launches), "events": be.events,
+            "backend": be, "cfg": cfg}
+
+
+def backend_alone_ms(be, cfg, dev) -> dict:
+    """Host-clock ms (median of 3, the result fetched) of the back end's
+    three steps on the SLAM run's own bank and graph, with the card to
+    themselves: the adjacent m2m registration of the last two banked
+    submaps, one loop candidate's ladder (NCC, GNC, the fine m2m) for the
+    first loop edge's pair, and the dense PGO solve of the final graph."""
+    import torch
+    from mulls_tpu_torch.backend import bank as bk
+    from mulls_tpu_torch.backend.pgo import optimize_and_check
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+
+    def ms(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    s = cfg.submap
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    banked = [sm for sm in be.submaps if sm.slot >= 0]
+    a, b = banked[-2], banked[-1]
+    res = {"m2m": ms(lambda: bk.pair_m2m(
+        be.bank, a.slot, b.slot, f32(np.linalg.inv(a.pose) @ b.pose), cfg,
+        cfg.reg.reg_max_iter_num_m2m).cpu())}
+    loop = next((e for e in be.edges if e.kind == 2), None)
+    if loop is not None:
+        old, new = be.submaps[loop.i], be.submaps[loop.j]
+        res["candidate"] = ms(lambda: bk.loop_eval_batch(
+            be.bank, [old.slot], new.slot,
+            f32(np.linalg.inv(old.pose) @ new.pose)[None], [True],
+            f32([[3.0, 3.0]]), GeneratorDraws(0, dev), cfg).cpu())
+    graph, _ = be.build_graph()
+    res["pgo"] = ms(lambda: optimize_and_check(
+        graph, iterations=s.pgo_max_iter, robust_kernel=s.robust_kernel_on,
+        tran_thre=s.wrong_edge_tran_thre,
+        rot_thre_deg=s.wrong_edge_rot_thre_deg).cpu())
+    return res
+
+
+class NnTap:
+    """Records the problems of ``nearest_neighbor_grouped`` as the ICP
+    calls it, while entered."""
+
+    def __enter__(self):
+        from mulls_tpu_torch.frontend import icp
+        self.icp, self.fn, self.calls = icp, icp.nearest_neighbor_grouped, []
+        icp.nearest_neighbor_grouped = self
+        return self
+
+    def __exit__(self, *exc):
+        self.icp.nearest_neighbor_grouped = self.fn
+
+    def __call__(self, problems):
+        self.calls.append([tuple(t.contiguous() for t in pr)
+                           for pr in problems])
+        return self.fn(problems)
+
+
+def m2m_nn_check(slam: dict, dev) -> dict:
+    """``nn_grouped`` at the map-to-map shapes: the first ICP iteration of
+    ``bank.pair_m2m`` between two real adjacent submaps of the SLAM run
+    (strided sources against full targets, the five ICP classes in one
+    launch), bit-equal to the plain version and twice the same bits,
+    timed, against ``cdist`` + ``min`` per class and the bound."""
+    import torch
+    from mulls_tpu_torch.backend import bank as bk
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
+
+    be, cfg = slam["backend"], slam["cfg"]
+    banked = [s for s in be.submaps if s.slot >= 0]
+    a, b = banked[-3], banked[-2]
+    T = torch.as_tensor((np.linalg.inv(a.pose) @ b.pose).astype(np.float32),
+                        device=dev)
+    with NnTap() as tap:
+        bk.pair_m2m(be.bank, a.slot, b.slot, T, cfg, 1)
+    group = tap.calls[0]
+    got, want = kernels.nn_grouped(group), kernels.nn_grouped_plain(group)
+    for k, ((ik, dk), (ip, dp)) in enumerate(zip(got, want)):
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            raise AssertionError(f"nn_grouped at the m2m shapes, problem {k}:"
+                                 f" differs from the plain version")
+    if not same_bits(lambda: kernels.nn_grouped(group)):
+        raise AssertionError("nn_grouped at the m2m shapes: two launches "
+                             "differ")
+    shapes = [(pr[0].shape[0], pr[2].shape[0]) for pr in group]
+    pairs = sum(q * p for q, p in shapes)
+    ms, ops = device_ms(lambda: kernels.nn_grouped(group), 50)
+    ev = time_ms(lambda: kernels.nn_grouped(group), 50)
+    plain = time_ms(lambda: kernels.nn_grouped_plain(group), 5)
+
+    def lib():
+        for q, _, p, pm in group:
+            torch.cdist(q, torch.where(pm[:, None], p,
+                                       torch.full_like(p, 1e18))).min(dim=1)
+
+    lib_ms = time_ms(lib, 5)
+    nbytes = sum(q * 13 + p * 13 + q * 8 for q, p in shapes)
+    bnd, by = bound_ms(9.0 * pairs, nbytes)
+    shape = " + ".join(f"{q}x{p}" for q, p in shapes)
+    print(f"[kernels] nn_grouped at the m2m shapes of submaps {a.sid}->"
+          f"{b.sid} ({shape}, {pairs:.3g} pairs): equal to the plain version"
+          f" bit for bit, same bits twice; one grouped launch {ms:.4f} ms on "
+          f"the device ({ops:.0f} launch per call; {ev:.4f} ms per call with "
+          f"CUDA events), plain {plain:.4f} ms, cdist+min {lib_ms:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}); {cfg.reg.reg_max_iter_num_m2m} such "
+          f"launches per registration", flush=True)
+    return {"shape": shape, "pairs": pairs, "ms": ms, "event_ms": ev,
+            "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
+            "bound_by": by, "max_abs_err": 0.0}
+
+
+# --------------------------------------------------------------------------
+# phase 9: SLAM on the card against SLAM on the CPU at a small width
+# --------------------------------------------------------------------------
+
+def _loop_world(rng: np.random.Generator, n: int = 120000,
+                extent: float = 45.0) -> np.ndarray:
+    """tests/test_pipeline.py's loop world: ground + walls on a square
+    corridor + posts."""
+    n_g = n // 2
+    g = np.stack([rng.uniform(-extent, extent, n_g),
+                  rng.uniform(-extent, extent, n_g),
+                  0.03 * rng.normal(size=n_g) - 1.7], -1)
+    n_w = n // 4
+    side = rng.integers(0, 4, n_w)
+    u = rng.uniform(-extent, extent, n_w)
+    d = np.full(n_w, extent * 0.7) + 0.05 * rng.normal(size=n_w)
+    wx = np.where(side == 0, d, np.where(side == 1, -d, u))
+    wy = np.where(side < 2, u, np.where(side == 2, d, -d))
+    w = np.stack([wx, wy, rng.uniform(-1.5, 3.0, n_w)], -1)
+    n_p = n - n_g - n_w
+    per = 60
+    cx = rng.uniform(-extent, extent, n_p // per + 1)
+    cy = rng.uniform(-extent, extent, n_p // per + 1)
+    reps = np.repeat(np.arange(len(cx)), per)[:n_p]
+    p = np.stack([cx[reps] + 0.02 * rng.normal(size=n_p),
+                  cy[reps] + 0.02 * rng.normal(size=n_p),
+                  rng.uniform(-1.5, 2.0, n_p)], -1)
+    return np.concatenate([g, w, p]).astype(np.float32)
+
+
+def agree_slam_phase(dev, seed: int, n_frames: int = 26) -> dict:
+    """tests/test_pipeline.py's loop-closure world and config (26 frames on
+    a circle of 8 m with a speed ramp, 4-frame submaps, loop search 3 ids
+    back) through ``SlamPipeline`` on the card and on the CPU with the same
+    scans and the same front-end and back-end draws."""
+    import dataclasses
+
+    from mulls_tpu_torch.pipeline.slam import SlamPipeline
+    base = small_cfg()
+    cfg = base.replace(
+        submap=dataclasses.replace(
+            base.submap, loop_closure_detection_on=True,
+            submap_accu_tran=8.0, submap_accu_rot=1e9, submap_accu_frame=4,
+            min_submap_id_diff=3, neighbor_search_dist=30.0,
+            min_iou_thre=0.2, teaser_min_inlier_count=6,
+            map2map_reliable_sigma_thre=0.04,
+            max_used_reg_edge_per_optimization=2),
+        reg=dataclasses.replace(base.reg, corr_dis_thre_init=3.5,
+                                corr_dis_thre_min=0.6))
+    rng = np.random.default_rng(seed + 6)
+    world = _loop_world(rng)
+    gt = []
+    for k in range(n_frames):
+        ang = 2 * np.pi * (k / (n_frames - 1)) ** 1.5
+        T = np.eye(4)
+        c, s = math.cos(ang + math.pi / 2), math.sin(ang + math.pi / 2)
+        T[:2, :2] = [[c, -s], [s, c]]
+        T[:3, 3] = [8.0 * math.cos(ang) - 8.0, 8.0 * math.sin(ang), 0.0]
+        gt.append(T)
+    frames = [render_scan(world, T, cfg.shapes.n_raw, rng, sensor_range=35.0)
+              for T in gt]
+    runs = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        runs[str(where)] = (SlamPipeline(
+            cfg, segment=2, device=where, draws=HostDraws(seed + 1, where),
+            frontend_draws=HostDraws(seed, where)).run(frames),
+            time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = runs[str(dev)], runs["cpu"]
+    spans = [[(s.frame_begin, s.frame_end) for s in r.backend.submaps]
+             for r in (card, cpu)]
+    edges = [[(e.i, e.j, e.kind) for e in r.backend.edges]
+             for r in (card, cpu)]
+    rel = [motion_diff(a, b) for a, b in zip(
+        np.linalg.inv(card.poses[:-1]) @ card.poses[1:],
+        np.linalg.inv(cpu.poses[:-1]) @ cpu.poses[1:])]
+    pose = [motion_diff(a, b) for a, b in zip(card.poses, cpu.poses)]
+    out = {"spans_card": spans[0], "spans_cpu": spans[1],
+           "edges_card": edges[0], "edges_cpu": edges[1],
+           "codes_card": card.codes, "codes_cpu": cpu.codes,
+           "rel_dt_m": max(d[0] for d in rel),
+           "rel_dr_deg": max(d[1] for d in rel),
+           "pose_dt_m": max(d[0] for d in pose),
+           "pose_dr_deg": max(d[1] for d in pose),
+           "per_frame_rel_m": [d[0] for d in rel],
+           "per_frame_pose_m": [d[0] for d in pose]}
+    print(f"[agree-slam] small width, {n_frames} frames: card spans "
+          f"{spans[0]}, edges {edges[0]}; cpu spans {spans[1]}, edges "
+          f"{edges[1]}; per-frame motion difference max {out['rel_dt_m']:.2e}"
+          f" m, {out['rel_dr_deg']:.2e} deg; pose difference max "
+          f"{out['pose_dt_m']:.2e} m, {out['pose_dr_deg']:.2e} deg (card "
+          f"{card_s:.1f} s with warm-up, cpu {cpu_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1077,6 +1549,14 @@ def main() -> int:
     # --- phase 6: card against CPU; phase 7: time breakdown
     agree = agree_phase(dev, SEED)
     prof = profile_phase(frames, MullsConfig(), dev)
+    # --- phase 8: SLAM with loop closure; the m2m nn shapes from its bank;
+    # phase 9: SLAM on the card against the CPU
+    slam = slam_phase(dev, SEED, main_res["fps"])
+    try:
+        m2m = m2m_nn_check(slam, dev)
+    except AssertionError as e:
+        return fail(f"kernel check: {e}")
+    agree_slam = agree_slam_phase(dev, SEED)
     kernels_line = []
     by_name = {}
     for r in rows:
@@ -1095,7 +1575,16 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "slam_launches": slam["launches"][name]})
+        if name == "nn_grouped":
+            # the back end's shapes: one m2m ICP iteration, its launches
+            # those of the SLAM run's back end
+            kernels_line[-1]["m2m"] = {
+                k: m2m[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}
+            kernels_line[-1]["m2m"]["launches"] = \
+                slam["backend_launches"]["nn_grouped"]
     # the probe's kernels, with the launches of the probe's own run
     kernels_line += probe["entries"]
 
@@ -1136,11 +1625,61 @@ def main() -> int:
         problems.append(f"card and CPU motion differ by {agree['max_dt_m']} "
                         f"m / {agree['max_dr_deg']} deg")
 
+    # the SLAM path: every kernel of the front end launched during it, and
+    # the back end's own map-to-map searches
+    for name, k in slam["launches"].items():
+        if k <= 0:
+            problems.append(f"kernel {name} was not launched on the SLAM "
+                            f"path")
+    if slam["backend_launches"]["nn"] <= 0:
+        problems.append("the back end launched no nn kernel")
+    s_after = slam["codes"][1:]
+    if sum(1 for c in s_after if c == 1) < 0.9 * len(s_after):
+        problems.append(f"SLAM: {len(slam['bad'])} of {len(s_after)} frames "
+                        f"after the first without code 1")
+    if slam["adjacent"] != slam["submaps"] - 1:
+        problems.append(f"SLAM: {slam['adjacent']} adjacent edges for "
+                        f"{slam['submaps']} submaps")
+    if not slam["loops"]:
+        problems.append("SLAM: no loop edge")
+    for lp in slam["loops"]:
+        if not lp["t_err_m"] <= LOOP_EDGE_BOUND_M:
+            problems.append(f"SLAM: loop edge {lp['i']}->{lp['j']} is "
+                            f"{lp['t_err_m']} m from the ground truth, above "
+                            f"{LOOP_EDGE_BOUND_M} m")
+    if slam["pgo_accepted"] < 1:
+        problems.append("SLAM: no PGO accepted")
+    if not slam["end_err_m"] <= 0.02 * slam["dist_m"]:
+        problems.append(f"SLAM: end error {slam['end_err_m']} m over "
+                        f"{slam['dist_m']} m is above 2 %")
+    # card against CPU at small width: the bounds of the CPU parity test
+    # between the port and the reference (tests/test_torch_slam.py).  On
+    # this world's fast turning loop a few features per frame flip between
+    # the two (the feature stage's closed-form eigh, see the agree phase
+    # above), which moves a frame by centimetres and accumulates along the
+    # trajectory
+    if (agree_slam["spans_card"] != agree_slam["spans_cpu"]
+            or agree_slam["edges_card"] != agree_slam["edges_cpu"]):
+        problems.append("SLAM on the card and on the CPU: different submap "
+                        "spans or edges")
+    if not (agree_slam["rel_dt_m"] < 0.05 and agree_slam["rel_dr_deg"] < 0.5
+            and agree_slam["pose_dt_m"] < 0.1
+            and agree_slam["pose_dr_deg"] < 1.0):
+        problems.append(f"SLAM on the card and on the CPU: per-frame motion "
+                        f"differs by {agree_slam['rel_dt_m']} m / "
+                        f"{agree_slam['rel_dr_deg']} deg, poses by "
+                        f"{agree_slam['pose_dt_m']} m / "
+                        f"{agree_slam['pose_dr_deg']} deg")
+
     if args.out:
+        slam_rec = {k: v for k, v in slam.items()
+                    if k not in ("backend", "cfg")}
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels_line,
                        "kernel_rows": rows, "probe": probe, "main": main_res,
-                       "agree": agree, "profile": prof}, f, indent=1)
+                       "agree": agree, "profile": prof, "slam": slam_rec,
+                       "m2m_nn": m2m, "agree_slam": agree_slam}, f, indent=1,
+                      default=float)
     if problems:
         for p in problems:
             print(f"[FAIL] {p}", flush=True)

@@ -1,11 +1,13 @@
-"""mulls_slam-equivalent CLI, odometry path — port of
-``mulls_tpu/apps/slam.py``.
+"""mulls_slam-equivalent CLI — port of ``mulls_tpu/apps/slam.py``.
 
-Runs LiDAR odometry over a scan folder on the card and writes the
-reference program's outputs (`test/mulls_slam.cpp`): pose files in KITTI 3x4
-format, a timing report, and the KITTI drift evaluation when ground truth
-is given.  The back end (loop closure, PGO), the NDT/VGICP baselines, map
-assembly and the HTML viewer are not ported yet: their flags raise.
+Runs LiDAR odometry, or with ``--loop_closure_detection_on`` the full SLAM
+pipeline (submaps, loop closure, PGO and the end-of-run refinement), over a
+scan folder on the card, and writes the reference program's outputs
+(`test/mulls_slam.cpp`): pose files in KITTI 3x4 format, a timing report,
+the pose-graph constraint file, checkpoints, during-run map snapshots and
+the KITTI drift evaluation when ground truth is given.  The NDT/VGICP
+baselines, map assembly and the feature / map viewers are not ported yet:
+their flags raise.
 
 Usage:
   python -m mulls_tpu_torch.apps.slam \
@@ -19,6 +21,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -31,10 +34,10 @@ from mulls_tpu_torch.eval import kitti_metrics
 from mulls_tpu_torch.io import kitti as kitti_io
 from mulls_tpu_torch.io.dataset import FolderDataset
 from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
+from mulls_tpu_torch.pipeline.slam import SlamPipeline
 
 # flags whose path lives in modules this package does not carry yet
 _NOT_PORTED = {
-    "loop_closure_detection_on": "the submap back end (loop closure, PGO)",
     "baseline_reg_method": "the NDT / VGICP baselines",
     "semantic_kitti_label_folder": "the Semantic-KITTI dataset reader",
     "output_map_pcd": "map assembly",
@@ -43,9 +46,6 @@ _NOT_PORTED = {
     "output_map_bev": "map assembly",
     "output_map_html": "the HTML viewer",
     "export_feature_frame": "the feature-cloud viewer export",
-    "checkpoint_path": "checkpointing",
-    "map_snapshot_dir": "the live map snapshots",
-    "constraint_output_file": "the pose-graph constraint dump",
     "profile_dir": "the profiler capture",
 }
 
@@ -80,6 +80,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timing_report_file", default=None)
     p.add_argument("--evaluation_file", default=None)
     p.add_argument("--progress", action="store_true")
+    p.add_argument("--loop_closure_detection_on", type=gflag_bool,
+                   default=None,
+                   help="override the flagfile's loop-closure switch (0|1)")
+    p.add_argument("--constraint_output_file", default=None,
+                   help="dump the pose-graph edges in the reference's "
+                        "constraint-file format (`dataio.hpp:1247-1337`)")
+    p.add_argument("--checkpoint_path", default=None,
+                   help="checkpoint file for save/resume (SLAM mode)")
+    p.add_argument("--map_snapshot_dir", default=None,
+                   help="write a WebGL snapshot of the live map / "
+                        "trajectory / pose graph here every N submaps")
+    p.add_argument("--map_snapshot_every_submaps", type=int, default=4)
     for name in _NOT_PORTED:
         p.add_argument(f"--{name}", default=None,
                        help=f"not ported yet ({_NOT_PORTED[name]})")
@@ -101,10 +113,10 @@ def main(argv=None) -> int:
     cfg = load_flagfile(args.flagfile) if args.flagfile else MullsConfig()
     if extra:  # gflags parity: any --name=value accepted on the CLI
         cfg = apply_flag_overrides(cfg, extra)
-    if cfg.submap.loop_closure_detection_on:
-        raise SystemExit("loop closure (the submap back end) is not ported "
-                         "to mulls_tpu_torch yet; set "
-                         "--loop_closure_detection_on=false")
+    if args.loop_closure_detection_on is not None:
+        cfg = cfg.replace(submap=dataclasses.replace(
+            cfg.submap,
+            loop_closure_detection_on=bool(args.loop_closure_detection_on)))
     if cfg.baseline.method:
         raise SystemExit("the NDT / VGICP baselines are not ported to "
                          "mulls_tpu_torch yet")
@@ -115,9 +127,26 @@ def main(argv=None) -> int:
     print(f"[mulls_tpu_torch] {len(ds)} frames from "
           f"{args.point_cloud_folder}")
 
-    res = OdometryPipeline(cfg, device=args.device).run(
-        ds, progress=args.progress,
-        profile=args.timing_report_file is not None)
+    backend = None
+    if cfg.submap.loop_closure_detection_on:
+        # the full SLAM pipeline (submaps + loop closure + PGO,
+        # `mulls_slam.cpp:451-628`)
+        pipe = SlamPipeline(cfg, checkpoint_path=args.checkpoint_path,
+                            snapshot_dir=args.map_snapshot_dir,
+                            snapshot_every=args.map_snapshot_every_submaps,
+                            device=args.device)
+        res = pipe.run(ds, progress=args.progress,
+                       stage_timing=args.timing_report_file is not None)
+        backend = res.backend
+        print(f"[mulls_tpu_torch] back-end: {len(backend.submaps)} submaps, "
+              f"{len(backend.edges)} edges, "
+              f"{sum(1 for e in backend.edges if e.kind == 2)} reg edges")
+        # end-of-run inner-submap refinement (`mulls_slam.cpp:876-927`)
+        pipe.refine(res)
+    else:
+        res = OdometryPipeline(cfg, device=args.device).run(
+            ds, progress=args.progress,
+            profile=args.timing_report_file is not None)
 
     poses_lidar = res.poses
     if args.output_lo_lidar_pose_file_path:
@@ -140,7 +169,8 @@ def main(argv=None) -> int:
         t = res.timings[1:]
         print(f"[mulls_tpu_torch] mean per-frame: total "
               f"{t.sum(1).mean():.1f} ms (feature {t[:, 0].mean():.1f} | "
-              f"map {t[:, 1].mean():.1f} | reg {t[:, 2].mean():.1f})")
+              f"map {t[:, 1].mean():.1f} | reg {t[:, 2].mean():.1f} | "
+              f"loop {t[:, 3].mean():.1f})")
 
     gt_body = gt_lidar = None
     if args.gt_body_pose_file_path:
@@ -161,6 +191,19 @@ def main(argv=None) -> int:
     if args.gt_lidar_pose_point_cloud and gt_lidar is not None:
         write_pcd(args.gt_lidar_pose_point_cloud,
                   gt_lidar[:, :3, 3].astype(np.float32))
+
+    # constraint-file dump (`dataio.hpp:1247-1337` format)
+    if args.constraint_output_file:
+        if backend is not None:
+            from mulls_tpu_torch.io.constraints import write_constraint_file
+            n_con = write_constraint_file(args.constraint_output_file,
+                                          backend.edges)
+            print(f"[mulls_tpu_torch] {n_con} constraints -> "
+                  f"{args.constraint_output_file}")
+        else:
+            print("[mulls_tpu_torch] constraint output requested but no "
+                  "pose graph was built (enable "
+                  "--loop_closure_detection_on)")
 
     if gt_body is not None:
         m = min(len(gt_body), len(poses_body))

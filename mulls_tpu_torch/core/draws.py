@@ -29,6 +29,12 @@ class Draws(Protocol):
     def bits(self, shape: Sequence[int]) -> torch.Tensor:
         """Uniform 32-bit words of ``shape``, held in int64."""
 
+    def get_state(self):
+        """A picklable snapshot of the stream (for checkpoints)."""
+
+    def set_state(self, state) -> None:
+        """Continue from a :meth:`get_state` snapshot."""
+
 
 class GeneratorDraws:
     """Production draws: one ``torch.Generator`` on the run's device.
@@ -49,3 +55,10 @@ class GeneratorDraws:
     def bits(self, shape) -> torch.Tensor:
         return torch.randint(0, 1 << 32, tuple(shape), generator=self.gen,
                              device=self.device, dtype=torch.int64)
+
+    def get_state(self):
+        """The generator's state (a checkpoint stores it)."""
+        return self.gen.get_state().numpy()
+
+    def set_state(self, state) -> None:
+        self.gen.set_state(torch.as_tensor(state, dtype=torch.uint8))

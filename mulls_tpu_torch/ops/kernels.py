@@ -26,7 +26,9 @@ for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (``nn.launches`` etc.), incremented
 where the kernel is launched and nowhere else.  ``nn.launches`` counts every
 launch of the nn kernel, ``nn_grouped.launches`` those made for
-:func:`nn_grouped`.
+:func:`nn_grouped`.  The SLAM pipeline launches from two host threads, so
+the counts are taken under a lock, and :func:`count_launches` gives one
+thread's own launches (the back end's apart from the front end's).
 
 The nn, moments and pca_moments kernels merge across support chunks
 through scratch kept per device and stream (:func:`_scratch`): merge words
@@ -42,12 +44,14 @@ metre-scale coordinates moves boundary points).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
@@ -193,6 +197,9 @@ def library() -> ctypes.CDLL:
 
 
 _scratch_by_stream: dict = {}
+# the SLAM pipeline launches kernels from two host threads (the front end
+# and the back end's boundary thread) on one stream
+_scratch_lock = threading.Lock()
 
 
 def _scratch(t: torch.Tensor, n_keys: int, n_counters: int):
@@ -201,17 +208,18 @@ def _scratch(t: torch.Tensor, n_keys: int, n_counters: int):
     stream of ``t``'s device.  Every launch leaves them as made (words at
     ``mulls_nn_empty_key()``, counters 0), so they are filled only when
     made or grown; kernels on one stream run in order, so they never share
-    them."""
+    them, whichever host thread launched them."""
     key = (t.device.index, _stream(t).value)
-    keys, counters = _scratch_by_stream.get(key, (None, None))
-    if keys is None or keys.numel() < n_keys:
-        empty = library().mulls_nn_empty_key()
-        keys = torch.full((max(n_keys, 1 << 14),), empty, dtype=torch.int64,
-                          device=t.device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros((max(n_counters, 1 << 10),), dtype=torch.int32,
-                               device=t.device)
-    _scratch_by_stream[key] = (keys, counters)
+    with _scratch_lock:
+        keys, counters = _scratch_by_stream.get(key, (None, None))
+        if keys is None or keys.numel() < n_keys:
+            empty = library().mulls_nn_empty_key()
+            keys = torch.full((max(n_keys, 1 << 14),), empty,
+                              dtype=torch.int64, device=t.device)
+        if counters is None or counters.numel() < n_counters:
+            counters = torch.zeros((max(n_counters, 1 << 10),),
+                                   dtype=torch.int32, device=t.device)
+        _scratch_by_stream[key] = (keys, counters)
     return keys, counters
 
 
@@ -252,13 +260,47 @@ def _dispatch(device: torch.device) -> bool:
 
 
 def reset_launch_counts() -> None:
-    for fn in (nn, nn_grouped, moments, pca_moments):
-        fn.launches = 0
+    with _count_lock:
+        for fn in (nn, nn_grouped, moments, pca_moments):
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {"nn": nn.launches, "nn_grouped": nn_grouped.launches,
             "moments": moments.launches, "pca_moments": pca_moments.launches}
+
+
+_count_lock = threading.Lock()
+_thread = threading.local()
+
+
+def _count(fn) -> None:
+    """One launch of ``fn``'s kernel: added to its total (``fn.launches``,
+    all threads) and to the calling thread's open :func:`count_launches`
+    record, if any."""
+    with _count_lock:
+        fn.launches += 1
+    rec = getattr(_thread, "rec", None)
+    if rec is not None:
+        rec[fn.__name__] += 1
+
+
+@contextlib.contextmanager
+def count_launches():
+    """The calling thread's view of the launch counters: yields a dict
+    {name: launches} of the kernels this thread launches while entered
+    (launches from other threads are not in it).  Nested records also add
+    to the enclosing one."""
+    outer = getattr(_thread, "rec", None)
+    rec = dict.fromkeys(launch_counts(), 0)
+    _thread.rec = rec
+    try:
+        yield rec
+    finally:
+        _thread.rec = outer
+        if outer is not None:
+            for name, k in rec.items():
+                outer[name] += k
 
 
 # --------------------------------------------------------------------------
@@ -335,7 +377,7 @@ def _launch_nn(problems: Sequence[NnProblem]
     _check_launch(library().mulls_nn_grouped(
         len(problems), ptrs, sizes, _ptr(keys), _ptr(counters),
         _stream(problems[0][0])), "nn")
-    nn.launches += 1
+    _count(nn)
     return outs
 
 
@@ -363,7 +405,7 @@ def nn_grouped(problems: Sequence[NnProblem]
         group = live[s:s + NN_MAX_GROUP]
         for k, out in zip(group, _launch_nn([problems[k] for k in group])):
             outs[k] = out
-        nn_grouped.launches += 1
+        _count(nn_grouped)
     return outs
 
 
@@ -459,7 +501,7 @@ def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
         _ptr(q_xyz), _ptr(r2), _ptr(close_r2), _ptr(p_xyz), _ptr(p_mask),
         _ptr(feat_stack), qn, pn, cn, _ptr(partial), _ptr(cpartial),
         _ptr(counters), _ptr(sums), _ptr(csums), _stream(q_xyz)), "moments")
-    moments.launches += 1
+    _count(moments)
     return sums, csums
 
 
@@ -548,7 +590,7 @@ def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
         _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn, chunk,
         _ptr(partial), _ptr(counters), _ptr(cnt), _ptr(s1), _ptr(s2),
         _stream(q_xyz)), "pca_moments")
-    pca_moments.launches += 1
+    _count(pca_moments)
     return cnt, s1, s2
 
 

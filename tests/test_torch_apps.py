@@ -1,6 +1,9 @@
 """The port's host side against the JAX package: the numpy readers and
-writers (copies), the KITTI drift metrics (a copy), and the odometry CLI
-``python -m mulls_tpu_torch.apps.slam`` on a small scan folder, on the CPU."""
+writers (copies), the KITTI drift metrics (a copy), the constraint-file
+writer (a copy), and the CLI ``python -m mulls_tpu_torch.apps.slam`` on a
+small scan folder, odometry and SLAM, on the CPU."""
+
+import time
 
 import numpy as np
 import pytest
@@ -91,7 +94,7 @@ def test_kitti_drift_metrics_match_reference():
     assert tmetrics.ate_rmse(gt, est) == jmetrics.ate_rmse(gt, est)
 
 
-@pytest.mark.parametrize("flag", ["--loop_closure_detection_on=true",
+@pytest.mark.parametrize("flag", ["--baseline_reg_method=ndt",
                                   "--output_map_pcd=map.pcd"])
 def test_slam_cli_refuses_what_is_not_ported(scan_folder, flag):
     with pytest.raises(SystemExit, match="not ported"):
@@ -119,3 +122,65 @@ def test_slam_cli_runs_odometry_on_a_scan_folder(scan_folder, tmp_path,
     np.testing.assert_allclose(poses[:, :3, 3], _gt()[:, :3, 3], atol=0.05)
     timing = np.loadtxt(tmp_path / "timing.txt")
     assert timing.shape == (N_SCANS, 4) and np.all(timing[:, :3] > 0)
+
+
+def test_slam_cli_runs_the_back_end_on_a_scan_folder(scan_folder, tmp_path,
+                                                     monkeypatch):
+    """--loop_closure_detection_on: submaps every frame (segments of one
+    frame), the adjacent edges in the constraint file, which the
+    reference's reader parses, a checkpoint and a snapshot written, and
+    the end-of-run refinement."""
+    import functools
+
+    from mulls_tpu.io.constraints import read_constraint_file
+    monkeypatch.setattr(tslam, "MullsConfig", ge._small_cfg)
+    monkeypatch.setattr(tslam, "SlamPipeline",
+                        functools.partial(tslam.SlamPipeline, segment=1))
+    out, con = tmp_path / "lo_lidar.txt", tmp_path / "graph.txt"
+    rc = tslam.main([
+        "--point_cloud_folder", str(scan_folder / "velodyne"),
+        "--device", "cpu", "--loop_closure_detection_on=true",
+        "--submap_accu_frame=1", "--constraint_output_file", str(con),
+        "--checkpoint_path", str(tmp_path / "run.ckpt"),
+        "--map_snapshot_dir", str(tmp_path / "snaps"),
+        "--map_snapshot_every_submaps=1",
+        "--output_lo_lidar_pose_file_path", str(out)])
+    assert rc == 0
+    poses = tkitti.read_kitti_poses(str(out))
+    np.testing.assert_allclose(poses[:, :3, 3], _gt()[:, :3, 3], atol=0.05)
+    _, cons = read_constraint_file(str(con))
+    assert [(c["block1"], c["block2"], c["kind"]) for c in cons] == [
+        (0, 1, 1)]
+    assert (tmp_path / "run.ckpt").exists()
+    snap = tmp_path / "snaps" / "snapshot_0000.html"
+    for _ in range(50):  # written on a daemon thread
+        if snap.exists():
+            break
+        time.sleep(0.2)
+    assert snap.exists()
+
+
+def test_eval_run_matches_reference(scan_folder, tmp_path):
+    """``apps/eval_run.py`` is a copy: the same adjacent-error diagnosis and
+    the same report on the same pose files."""
+    import json
+
+    from mulls_tpu.apps import eval_run as jeval
+    from mulls_tpu_torch.apps import eval_run as teval
+    rng = np.random.default_rng(6)
+    gt = _gt()
+    est = gt.copy()
+    est[:, :3, 3] += 0.05 * rng.normal(size=(N_SCANS, 3))
+    je, jf = jeval.adjacent_error_diagnosis(gt, est)
+    te, tf = teval.adjacent_error_diagnosis(gt, est)
+    np.testing.assert_array_equal(te, je)
+    np.testing.assert_array_equal(tf, jf)
+    tkitti.write_kitti_poses(str(tmp_path / "est.txt"), est)
+    reports = []
+    for mod in (jeval, teval):
+        out = tmp_path / f"{mod.__name__}.json"
+        assert mod.main(["--est_pose_file", str(tmp_path / "est.txt"),
+                         "--gt_pose_file", str(scan_folder / "gt.txt"),
+                         "--json_out", str(out)]) == 0
+        reports.append(json.loads(out.read_text()))
+    assert reports[0] == reports[1]

@@ -377,3 +377,166 @@ def test_probe_wrappers_launch_on_cuda_and_refuse_the_rest(dev, monkeypatch):
     with pytest.raises(ValueError):  # devices mixed
         rf.adj_stack(q, p.cpu(), pm.cpu(), r2, f)
     assert rf.launch_counts() == {"count_within": 1, "adj_stack": 1}
+
+
+# --- the submap back end on the card (mulls_tpu_torch/backend)
+
+# one map-to-map ICP iteration: strided sources (<= 4096) against the full
+# submap targets of the default map capacities, the five ICP classes
+_M2M_SHAPES = [(3072, 6144), (1536, 1536), (4096, 8192), (1024, 1024),
+               (512, 512)]
+
+
+def test_nn_grouped_at_the_map_to_map_shapes(dev):
+    group = [_clouds(dev, 40 + k, qn, pn, valid=0.95)
+             for k, (qn, pn) in enumerate(_M2M_SHAPES)]
+    got = kernels.nn_grouped(group)
+    again = kernels.nn_grouped(group)
+    want = kernels.nn_grouped_plain(group)
+    for (i, d), (i2, d2), (ri, rd) in zip(got, again, want):
+        assert torch.equal(i, ri) and torch.equal(d, rd)
+        assert torch.equal(i, i2) and torch.equal(d, d2)
+
+
+def test_launch_counts_have_a_per_thread_view(dev):
+    import threading
+    q, qm, p, pm = _clouds(dev, 9, 300, 900)
+    kernels.reset_launch_counts()
+    seen = {}
+
+    def other():
+        with kernels.count_launches() as rec:
+            kernels.nn_grouped([(q, qm, p, pm)] * 3)
+        seen.update(rec)
+
+    with kernels.count_launches() as mine:
+        kernels.nn(q, qm, p, pm)
+        th = threading.Thread(target=other)
+        th.start()
+        th.join()
+    torch.cuda.synchronize()
+    assert mine == {"nn": 1, "nn_grouped": 0, "moments": 0,
+                    "pca_moments": 0}
+    assert seen == {"nn": 1, "nn_grouped": 1, "moments": 0,
+                    "pca_moments": 0}
+    assert kernels.launch_counts()["nn"] == 2
+
+
+def _submap(T, seed=7, n=128):
+    """tests/test_bank.py's structured submap (ground, two walls, posts,
+    shared descriptors) in the frame ``T`` maps into, as the port's
+    clouds on the CPU."""
+    from mulls_tpu_torch.core.cloud import FeatureCloud, VertexDescriptors
+    rng = np.random.default_rng(seed)
+    R, t = T[:3, :3], T[:3, 3]
+
+    def cloud(xyz, normal, cap):
+        k = xyz.shape[0]
+        pad = np.zeros((cap - k, 3))
+        f = lambda a: torch.tensor(np.asarray(a, np.float32))
+        return FeatureCloud(
+            xyz=f(np.concatenate([xyz @ R.T + t, pad])),
+            normal=f(np.concatenate([normal @ R.T, pad])),
+            intensity=torch.full((cap,), 0.5), strength=torch.full((cap,), 0.8),
+            height=torch.zeros(cap), ts_ratio=torch.zeros(cap),
+            mask=torch.arange(cap) < k)
+
+    g = np.stack([rng.uniform(-20, 20, n), rng.uniform(-20, 20, n),
+                  rng.normal(0, 0.01, n)], -1)
+    fx = np.stack([np.full(n, 8.0) + rng.normal(0, 0.01, n),
+                   rng.uniform(-20, 20, n), rng.uniform(0, 6, n)], -1)
+    fy = np.stack([rng.uniform(-20, 20, n),
+                   np.full(n, -7.0) + rng.normal(0, 0.01, n),
+                   rng.uniform(0, 6, n)], -1)
+    nv = 24
+    base = np.stack([rng.uniform(-15, 15, nv), rng.uniform(-15, 15, nv)], -1)
+    p = np.concatenate([np.stack([base[:, 0] + rng.normal(0, 0.01, nv),
+                                  base[:, 1] + rng.normal(0, 0.01, nv),
+                                  np.full(nv, z)], -1)
+                        for z in np.linspace(0, 4, 16)])
+    v = np.concatenate([base, np.full((nv, 1), 4.0)], -1)
+    up = lambda k: np.tile([0.0, 0.0, 1.0], (k, 1))
+    none = np.zeros((0, 3))
+    clouds = {
+        "ground": cloud(g, up(n), 192),
+        "facade": cloud(np.concatenate([fx, fy]), np.concatenate(
+            [np.tile([1.0, 0, 0], (n, 1)), np.tile([0, 1.0, 0], (n, 1))]),
+            384),
+        "pillar": cloud(p, up(len(p)), 512),
+        "beam": cloud(none, none, 64), "roof": cloud(none, none, 64),
+        "vertex": cloud(v, up(nv), 64)}
+    vec = np.zeros((64, 11), np.float32)
+    vec[:nv] = rng.uniform(0, 60, (nv, 11))
+    return clouds, VertexDescriptors(vec=torch.tensor(vec),
+                                     mask=torch.arange(64) < nv)
+
+
+def _to(tree, where):
+    from mulls_tpu_torch.core.tree import tree_map
+    return tree_map(lambda x: x.to(where), tree)
+
+
+def test_bank_store_and_pair_m2m_on_the_card_match_the_cpu(dev):
+    from mulls_tpu_torch.backend import bank as bk
+    from mulls_tpu_torch.config import MullsConfig
+    cfg = MullsConfig()
+    T_true = np.eye(4)
+    T_true[:3, 3] = [0.4, -0.25, 0.05]
+    a, b = _submap(np.eye(4)), _submap(np.linalg.inv(T_true))
+    rows = {}
+    for where in (dev, torch.device("cpu")):
+        bank = bk.init_bank(_to(a[0], where), _to(a[1], where), capacity=4)
+        bk.bank_store(bank, 0, _to(a[0], where), _to(a[1], where))
+        bk.bank_store(bank, 2, _to(b[0], where), _to(b[1], where))
+        assert torch.equal(bank.clouds["facade"].xyz[2].cpu(),
+                           b[0]["facade"].xyz)
+        rows[where.type] = bk.pair_m2m(bank, 0, 2, torch.eye(4,
+                                       device=where), cfg,
+                                       cfg.reg.reg_max_iter_num_m2m).cpu()
+    card, cpu = bk.unpack_reg(rows["cuda"]), bk.unpack_reg(rows["cpu"])
+    assert card["code"] == cpu["code"] == 1
+    assert card["iterations"] == cpu["iterations"]
+    np.testing.assert_allclose(card["T"], cpu["T"], atol=1e-4)
+    np.testing.assert_allclose(card["T"][:3, 3], T_true[:3, 3], atol=0.05)
+
+
+def test_slam_backend_on_the_card_with_a_bank_of_two(dev):
+    """Five submaps of one structured world along a line, a bank of two
+    slots: evictions, the host path for loop candidates, PGO; the card's
+    decisions equal the CPU's and its poses agree to 1 cm."""
+    import dataclasses
+
+    from mulls_tpu_torch.backend.submap import SlamBackend
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.mapping.local_map import LocalMap
+    base = MullsConfig()
+    cfg = base.replace(submap=dataclasses.replace(
+        base.submap, loop_closure_detection_on=True, min_submap_id_diff=3,
+        neighbor_search_dist=30.0, min_iou_thre=0.2,
+        teaser_min_inlier_count=6, submap_bank_capacity=2))
+    poses = []
+    for k in range(5):
+        P = np.eye(4)
+        P[:3, 3] = [3.0 * k, 0.4 * k, 0.0]
+        poses.append(P)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        be = SlamBackend(cfg, where)
+        for k, P in enumerate(poses):
+            clouds, desc = _submap(np.linalg.inv(P))
+            prior = P.copy()
+            prior[1, 3] += 0.05 * k  # odometry drift
+            be.add_submap(LocalMap(clouds=_to(clouds, where),
+                                   vertex_desc=_to(desc, where)),
+                          prior, k, k)
+            be.on_new_submap(GeneratorDraws(k, "cpu"))
+        runs[where.type] = be
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert any("evicted" in ev for ev in card.events)
+    assert ([(e.i, e.j, e.kind) for e in card.edges]
+            == [(e.i, e.j, e.kind) for e in cpu.edges])
+    assert any(e.kind == 2 for e in card.edges), card.events
+    for s, r in zip(card.submaps, cpu.submaps):
+        np.testing.assert_allclose(s.pose[:3, 3], r.pose[:3, 3], atol=0.01)
+    assert card.launches["nn"] > 0 and cpu.launches["nn"] == 0

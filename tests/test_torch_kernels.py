@@ -410,3 +410,40 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[1]) >= 20
+
+
+def test_launch_counters_under_thread_contention():
+    """The SLAM pipeline launches from two host threads: totals and each
+    thread's own record (``count_launches``) lose no update when 16
+    threads count at a shortened switch interval."""
+    import threading
+
+    n_threads, per = 16, 2000
+    kernels.reset_launch_counts()
+    records = [None] * n_threads
+
+    def work(k):
+        with kernels.count_launches() as rec:
+            for _ in range(per):
+                kernels._count(kernels.nn)
+                kernels._count(kernels.moments)
+        records[k] = rec
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert kernels.launch_counts() == {"nn": n_threads * per, "nn_grouped": 0,
+                                 "moments": n_threads * per,
+                                 "pca_moments": 0}
+    assert all(r == {"nn": per, "nn_grouped": 0, "moments": per,
+                     "pca_moments": 0} for r in records)
+    kernels.reset_launch_counts()

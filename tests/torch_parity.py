@@ -81,6 +81,41 @@ def state_to_numpy(obj):
     return np.asarray(obj)
 
 
+def backend_tree(backend) -> dict:
+    """A reference ``SlamBackend`` as the numpy tree of
+    ``mulls_tpu_torch.backend.convert.backend_to_numpy``: each submap's
+    clouds, descriptors, pose, frame span, bounds and span confidences;
+    the edges; the segmentation accumulators."""
+    subs = []
+    for s in backend.submaps:
+        clouds = jax.device_get(s.clouds)
+        desc = jax.device_get(s.descriptors)
+        subs.append({
+            "sid": s.sid, "pose": np.array(s.pose),
+            "frame_begin": s.frame_begin, "frame_end": s.frame_end,
+            "stable": bool(s.stable), "span_min_conf": s.span_min_conf,
+            "span_mean_conf": s.span_mean_conf,
+            "center": np.array(s.center), "local_bbx": s.local_bbx,
+            "bbx_min": s._bbx_min, "bbx_max": s._bbx_max,
+            "clouds": {n: {f: np.array(getattr(c, f)) for f in CLOUD_FIELDS}
+                       for n, c in clouds.items()},
+            "descriptors": {"vec": np.array(desc.vec),
+                            "mask": np.array(desc.mask)}})
+    return {
+        "submaps": subs,
+        "edges": [{"i": e.i, "j": e.j, "T": np.array(e.T),
+                   "info": np.array(e.info), "kind": e.kind,
+                   "sigma": e.sigma, "confidence": e.confidence}
+                  for e in backend.edges],
+        "events": list(backend.events), "cooling": backend.cooling,
+        "accu": (backend._accu_tran, backend._accu_rot_deg,
+                 backend._accu_frames),
+        "span": (backend._span_min_conf, backend._span_conf_sum,
+                 backend._span_conf_n),
+        "frames_wo_opt": backend.frames_wo_opt,
+        "optimized": backend.optimized}
+
+
 def match_fraction(a: np.ndarray, b: np.ndarray, tol: float) -> float:
     """Fraction of the rows of ``a`` with a row of ``b`` within ``tol``."""
     if len(a) == 0:
