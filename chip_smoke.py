@@ -38,7 +38,10 @@ Phases (each prints its own line; any failure exits non-zero):
               counted launches,
               that nn launched at most 30 times a frame, that >= 90 % of
               the frames after the first registered with code 1, and the
-              end translation error against ground truth.
+              end translation error against ground truth.  The same run
+              again from the same seed must give the same poses bit for
+              bit (the order-fixed sums of ops/segment.py); both end
+              errors are printed.
 6. agree    — the port on the card against the port's plain PyTorch paths
               on the CPU, same scans and same draws, at a small width:
               equal codes and per-frame motion within 2 cm / 0.2 deg.
@@ -73,6 +76,36 @@ Phases (each prints its own line; any failure exits non-zero):
               config and the same draws: the same submap spans and edges,
               per-frame motion within 5 cm / 0.5 deg and poses within
               10 cm / 1 deg (the bounds of tests/test_torch_slam.py).
+10. assembly — ``accumulate_map`` of the slam phase's 208 frames at its
+              final poses (0.25 m voxels), then ``radius_outlier_filter``
+              on the card, one ``count_within`` launch per 200,000 queries
+              against the whole map.  On the first chunk the kernel's
+              counts equal the plain version's on the card exactly, two
+              launches give the same bits and the filter keeps what the
+              plain counts keep; the pcd, BEV image and HTML viewer are
+              written and not empty.  Prints the map size, the filter's
+              ms and the kernel's ms a launch (CUDA events; ~0.1 s a
+              launch) against its bound, and its launches.
+11. baseline — ``BaselinePipeline`` with ``ndt`` and ``gicp`` at the default
+              ``BaselineConfig`` over the main phase's 32 frames: codes 1
+              or -1, finite fitness, frames/s and end error (recorded, not
+              bounded); ``pca_moments`` at the GICP covariances' own first
+              call (16384 x 16384, r = 1.0) against its plain version, as
+              in the kernel phase; both methods on the card against the
+              CPU at a small width with the same draws, 2 cm / 0.2 deg.
+12. cli     — ``mulls_tpu_torch.apps.slam.main`` over 8 street frames
+              written as KITTI .bin: SLAM with ``--output_map_pcd``,
+              ``--output_map_bev``, ``--output_map_html`` and
+              ``--profile_dir`` (the trace must hold CUDA kernel events),
+              then ``--baseline_reg_method gicp``; exit 0 and the files.
+
+The order of the run: 1-5, 11, 6, 7, 12, 8, 9, 10: the phases that read
+torch.profiler (3, 4, 7, 11) come first.  Its traces have lost device
+events, in the kernel and probe phases of some runs and after the
+threaded SLAM runs of others, for a reason not known.  A timing takes up
+to three traces; if all lose events, it takes the mean of the launches
+the last one kept, and the kernels line lists each such time on its
+kernel's row under ``device_ms_from_partial_traces``.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -86,12 +119,15 @@ import argparse
 import json
 import math
 import os
+import re
 import sys
 import time
 
 import numpy as np
 
 FRAMES = 32  # full-width frames of the main path
+# the kernels the odometry and SLAM paths launch
+MAIN_KERNELS = ("nn", "nn_grouped", "moments", "pca_moments")
 SEED = 0  # of the synthetic worlds, the scans and the draws
 
 
@@ -195,14 +231,19 @@ def post_map(world: np.ndarray, pose: np.ndarray, n: int,
 
 
 class PcaTap:
-    """Records the arguments of ``kernels.pca_moments`` as ``ops.pca``
-    calls it, while entered (every other name passes through)."""
+    """Records the arguments of ``kernels.pca_moments`` as ``module``
+    (default ``ops.pca``) calls it, while entered (every other name passes
+    through)."""
+
+    def __init__(self, module=None):
+        self.target = module
 
     def __enter__(self):
         from mulls_tpu_torch.ops import kernels
         from mulls_tpu_torch.ops import pca
-        self.module, self.kernels, self.calls = pca, kernels, []
-        pca.kernels = self
+        self.module = self.target or pca
+        self.kernels, self.calls = kernels, []
+        self.module.kernels = self
         return self
 
     def __exit__(self, *exc):
@@ -665,7 +706,7 @@ def main_phase(frames: list, gt: np.ndarray, dev) -> dict:
           flush=True)
     return {"frames": n, "seconds": wall, "fps": n / wall, "codes": codes,
             "bad": bad, "end_err_m": end_err, "dist_m": dist,
-            "launches": launches, "sigmas": res.sigmas}
+            "launches": launches, "sigmas": res.sigmas, "poses": res.poses}
 
 
 # --------------------------------------------------------------------------
@@ -1255,8 +1296,9 @@ def slam_phase(dev, seed: int, main_fps: float) -> dict:
           f"{be.launches}", flush=True)
     for ev in be.events:
         print(f"[slam]   {ev}", flush=True)
-    return {"frames": SLAM_FRAMES, "seconds": wall,
-            "fps": SLAM_FRAMES / wall, "odometry_fps": odo_fps,
+    return {"frames": SLAM_FRAMES, "seconds": wall, "scans": frames,
+            "poses": res.poses, "fps": SLAM_FRAMES / wall,
+            "odometry_fps": odo_fps,
             "main_fps": main_fps,
             "codes": res.codes, "bad": bad, "submaps": len(be.submaps),
             "spans": [(s.frame_begin, s.frame_end) for s in be.submaps],
@@ -1480,6 +1522,257 @@ def agree_slam_phase(dev, seed: int, n_frames: int = 26) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the map assembled from the SLAM run, filtered on the card
+# --------------------------------------------------------------------------
+
+ASSEMBLY_CHUNK = 200_000  # queries a count_within launch (the filter's)
+
+
+def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
+                   ) -> dict:
+    """``accumulate_map`` of the SLAM run's frames at its final poses (0.25 m
+    voxels), then ``radius_outlier_filter`` on the card (one count_within
+    launch per 200,000 queries against the whole map).  On the first chunk:
+    the kernel's counts equal the plain version's on the card exactly (the
+    plain version in 128-query slices), two launches give the same bits,
+    and the filter keeps what the plain counts keep.  Writes the pcd, the
+    BEV image and the HTML viewer."""
+    import torch
+    from mulls_tpu_torch.mapping import assembly as asm
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools.roofline import bound_ms, time_ms
+    from mulls_tpu_torch.viz import export_html_viewer
+
+    t0 = time.perf_counter()
+    pts = asm.accumulate_map(frames, poses, voxel_res=0.25)
+    acc_s = time.perf_counter() - t0
+    pn = len(pts)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    kept = asm.radius_outlier_filter(pts, chunk=ASSEMBLY_CHUNK, device=dev)
+    stop.record()
+    torch.cuda.synchronize()
+    filter_ms = start.elapsed_time(stop)
+    launches = kernels.launch_counts()["count_within"]
+
+    p = torch.as_tensor(pts, device=dev)
+    pm = torch.ones(pn, dtype=torch.bool, device=dev)
+    q = p[:ASSEMBLY_CHUNK]
+    qn = q.shape[0]
+    r2 = torch.ones(qn, dtype=torch.float32, device=dev)
+    ck = kernels.count_within(q, p, pm, r2)
+    if not same_bits(lambda: kernels.count_within(q, p, pm, r2)):
+        raise AssertionError("count_within at the assembly shape: two "
+                             "launches differ")
+    start.record()
+    cp = torch.cat([kernels.count_within_plain(q[s:s + 128], p, pm,
+                                               r2[s:s + 128])
+                    for s in range(0, qn, 128)])
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    if not torch.equal(ck, cp):
+        raise AssertionError(f"count_within at the assembly shape: "
+                             f"{int((ck != cp).sum())} counts differ")
+    keep_plain = pts[:qn][(cp >= 4).cpu().numpy()]
+    if not np.array_equal(kept[:len(keep_plain)], keep_plain):
+        raise AssertionError("the filter keeps other points than the plain "
+                             "counts keep on the first chunk")
+    # ~0.1 s a launch: CUDA events around back-to-back launches time the
+    # kernel (the launch gap is microseconds), and this phase runs after
+    # the SLAM runs, after which torch.profiler's traces have lost events
+    ms = time_ms(lambda: kernels.count_within(q, p, pm, r2), 3, warmup=1)
+    hits = float(cp.sum())
+    b, by = bound_ms(10.0 * qn * pn, 16 * qn + 13 * pn + 4 * qn)
+    full_b, _ = bound_ms(10.0 * pn * pn, 33 * pn)
+
+    files = {"pcd": os.path.join(out_dir, "map.pcd"),
+             "bev": os.path.join(out_dir, "map_bev.png"),
+             "html": os.path.join(out_dir, "map.html")}
+    asm.write_map_outputs(kept, files["pcd"], files["bev"])
+    if not os.path.exists(files["bev"]):  # no matplotlib: the raster
+        files["bev"] = os.path.splitext(files["bev"])[0] + ".npy"
+    export_html_viewer(files["html"], kept, trajectory=poses[:, :3, 3])
+    sizes = {k: os.path.getsize(v) if os.path.exists(v) else 0
+             for k, v in files.items()}
+    if not all(sizes.values()):
+        raise AssertionError(f"map outputs missing or empty: {sizes}")
+    print(f"[assembly] map of {len(frames)} frames at 0.25 m: {pn} points "
+          f"({acc_s:.1f} s on the host), {len(kept)} kept by the filter in "
+          f"{filter_ms:.1f} ms with CUDA events (upload, {launches} "
+          f"count_within launches, copy back; bound of the whole count "
+          f"{full_b:.3f} ms)", flush=True)
+    print(f"[assembly] count_within {qn}x{pn} (the first chunk, r = 1.0, "
+          f"{hits / qn:.1f} hits a query): exact against the plain version "
+          f"on the card, same bits twice, the filter keeps what the plain "
+          f"counts keep; kernel {ms:.4f} ms a launch (CUDA events), plain "
+          f"{plain_ms:.1f} ms (128-query slices), library none, bound "
+          f"{b:.4f} ms ({by}); files {sizes}", flush=True)
+    return {"points": pn, "kept": len(kept), "accumulate_s": acc_s,
+            "filter_ms": filter_ms, "launches": launches,
+            "shape": f"{qn}x{pn}", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "full_bound_ms": full_b,
+            "hits_per_query": hits / qn, "files": sizes}
+
+
+# --------------------------------------------------------------------------
+# phase 11: the NDT / VGICP baselines
+# --------------------------------------------------------------------------
+
+def baseline_small_cfg():
+    """The agree phase's width with the baselines at the budgets of the
+    CPU parity test (tests/test_torch_baseline.py)."""
+    import dataclasses
+    cfg = small_cfg()
+    return cfg.replace(baseline=dataclasses.replace(
+        cfg.baseline, frame_budget=4096, map_budget=8192,
+        table_resolution=1.8, voxel_down_size=0.5, max_iter=20))
+
+
+def baseline_phase(frames: list, gt: np.ndarray, dev, seed: int) -> dict:
+    """``BaselinePipeline`` with ``ndt`` and ``gicp`` at the default
+    ``BaselineConfig`` over the main phase's street frames: codes 1 or -1,
+    finite fitness, frames/s and end error (recorded, not bounded: the
+    baselines drift on synthetic worlds by design); ``pca_moments`` at the
+    GICP covariances' own first call (16384 x 16384, r = 1.0) against its
+    plain version; then both methods on the card against the CPU at a small
+    width with the same draws (2 cm / 0.2 deg)."""
+    import dataclasses
+
+    import torch
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.ops import baseline_reg, kernels
+    from mulls_tpu_torch.pipeline.baseline import BaselinePipeline
+
+    base = MullsConfig()
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt[0]), gt)
+    out = {}
+    for method in ("ndt", "gicp"):
+        cfg = base.replace(baseline=dataclasses.replace(base.baseline,
+                                                        method=method))
+        pipe = BaselinePipeline(cfg, device=dev)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PcaTap(baseline_reg) as tap:
+            res = pipe.run(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        end_err = float(np.linalg.norm(res.poses[-1, :3, 3]
+                                       - gt_rel[-1, :3, 3]))
+        out[method] = {"fps": len(frames) / wall, "codes": res.codes,
+                       "end_err_m": end_err, "launches": launches,
+                       "fitness": res.sigmas}
+        print(f"[baseline] {method}: {len(frames)} full-width frames in "
+              f"{wall:.2f} s, {len(frames) / wall:.2f} frames/s (warm-up "
+              f"included); codes {res.codes}; end error {end_err:.3f} m; "
+              f"launches {launches}", flush=True)
+        if not set(res.codes) <= {1, -1}:
+            raise AssertionError(f"{method}: codes {set(res.codes)}")
+        if not np.all(np.isfinite(res.sigmas)):
+            raise AssertionError(f"{method}: non-finite fitness")
+        if method == "gicp":
+            if launches["pca_moments"] <= 0:
+                raise AssertionError("gicp launched no pca_moments")
+            q, p, pm, r2 = tap.calls[0]
+            out["gicp_pca"] = pca_check(
+                f"{q.shape[0]}x{p.shape[0]} GICP", q, p, pm, r2)
+            out["gicp_pca"]["launches"] = launches["pca_moments"]
+
+    # the card against the CPU at a small width, the same draws
+    cfg0 = baseline_small_cfg()
+    rng = np.random.default_rng(seed + 7)
+    world = make_world(rng, n=60_000, half_x=35.0, half_y=35.0)
+    small = [render_scan(world, T, cfg0.shapes.n_raw, rng, sensor_range=30.0)
+             for T in trajectory(6, step=0.6)]
+    for method in ("ndt", "gicp"):
+        cfg = cfg0.replace(baseline=dataclasses.replace(cfg0.baseline,
+                                                        method=method))
+        card, cpu = (BaselinePipeline(cfg, device=where,
+                                      draws=HostDraws(seed, where)).run(small)
+                     for where in (dev, "cpu"))
+        diff = [motion_diff(a, b) for a, b in zip(
+            np.linalg.inv(card.poses[:-1]) @ card.poses[1:],
+            np.linalg.inv(cpu.poses[:-1]) @ cpu.poses[1:])]
+        dt, dr = max(d[0] for d in diff), max(d[1] for d in diff)
+        out[f"agree_{method}"] = {"codes_card": card.codes,
+                                  "codes_cpu": cpu.codes, "max_dt_m": dt,
+                                  "max_dr_deg": dr}
+        print(f"[baseline] {method} at small width, 6 frames: codes card "
+              f"{card.codes} cpu {cpu.codes}; per-frame motion difference "
+              f"max {dt:.2e} m, {dr:.2e} deg", flush=True)
+        if card.codes != cpu.codes or not (dt < 0.02 and dr < 0.2):
+            raise AssertionError(f"{method}: card and CPU differ at small "
+                                 f"width ({dt} m, {dr} deg)")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the SLAM CLI itself on the card
+# --------------------------------------------------------------------------
+
+def cli_phase(frames: list, out_dir: str) -> dict:
+    """``python -m mulls_tpu_torch.apps.slam`` (its ``main``) over 8 street
+    frames written as KITTI .bin: SLAM with the map outputs and a profiler
+    trace, then the GICP baseline.  Checks exit 0, the files, and CUDA
+    kernel events in the trace."""
+    from mulls_tpu_torch.apps import slam as cli
+    scans = os.path.join(out_dir, "velodyne")
+    os.makedirs(scans, exist_ok=True)
+    for k, f in enumerate(frames[:8]):
+        m = f["mask"]
+        np.concatenate([f["xyz"][m], f["intensity"][m, None] / 255.0],
+                       1).astype(np.float32).tofile(
+                           os.path.join(scans, f"{k:06d}.bin"))
+    o = lambda name: os.path.join(out_dir, name)
+    res = {}
+    t0 = time.perf_counter()
+    rc = cli.main(["--point_cloud_folder", scans,
+                   "--loop_closure_detection_on", "1",
+                   "--output_lo_lidar_pose_file_path", o("slam_poses.txt"),
+                   "--output_map_pcd", o("cli_map.pcd"),
+                   "--output_map_bev", o("cli_map.png"),
+                   "--output_map_html", o("cli_map.html"),
+                   "--profile_dir", o("profile")])
+    res["slam_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the SLAM CLI exited {rc}")
+    bev = o("cli_map.png") if os.path.exists(o("cli_map.png")) \
+        else o("cli_map.npy")
+    files = [o("slam_poses.txt"), o("cli_map.pcd"), bev, o("cli_map.html"),
+             o("profile/trace.json")]
+    sizes = {os.path.basename(f): (os.path.getsize(f)
+                                   if os.path.exists(f) else 0)
+             for f in files}
+    if not all(sizes.values()):
+        raise AssertionError(f"CLI outputs missing or empty: {sizes}")
+    kernel_events = 0
+    with open(o("profile/trace.json")) as f:
+        for line in f:
+            kernel_events += '"cat": "kernel"' in line
+    if kernel_events <= 0:
+        raise AssertionError("the profiler trace holds no CUDA kernel event")
+    t0 = time.perf_counter()
+    rc = cli.main(["--point_cloud_folder", scans,
+                   "--baseline_reg_method", "gicp",
+                   "--output_lo_lidar_pose_file_path", o("gicp_poses.txt")])
+    res["gicp_s"] = time.perf_counter() - t0
+    if rc != 0 or not os.path.getsize(o("gicp_poses.txt")):
+        raise AssertionError(f"the GICP CLI run exited {rc} or wrote no "
+                             f"poses")
+    res.update({"files": sizes, "kernel_events": kernel_events})
+    print(f"[cli] slam --loop_closure_detection_on 1 with the map outputs "
+          f"and --profile_dir: exit 0 in {res['slam_s']:.1f} s, files "
+          f"{sizes}, {kernel_events} CUDA kernel events in the trace; "
+          f"--baseline_reg_method gicp: exit 0 in {res['gicp_s']:.1f} s",
+          flush=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1543,12 +1836,30 @@ def main() -> int:
     except AssertionError as e:
         return fail(f"probe check: {e}")
 
-    # --- phase 5: main path
+    # --- phase 5: main path, twice from the same seed: the same bits
     main_res = main_phase(frames, gt, dev)
     launches = main_res["launches"]
+    again = main_phase(frames, gt, dev)
+    repeat_equal = bool(np.array_equal(main_res["poses"], again["poses"]))
+    print(f"[main] two runs from seed {SEED}: end errors "
+          f"{main_res['end_err_m']!r} m and {again['end_err_m']!r} m; poses "
+          f"{'equal bit for bit' if repeat_equal else 'differ'}", flush=True)
+    # --- phase 11: the baselines (profiled: before the threaded SLAM runs)
+    try:
+        baseline = baseline_phase(frames, gt, dev, SEED)
+    except AssertionError as e:
+        return fail(f"slice check: {e}")
     # --- phase 6: card against CPU; phase 7: time breakdown
     agree = agree_phase(dev, SEED)
     prof = profile_phase(frames, MullsConfig(), dev)
+    # --- phase 12: the CLI, SLAM under its own trace
+    import tempfile
+    tmp_dir = tempfile.TemporaryDirectory()
+    try:
+        cli = cli_phase(frames, tmp_dir.name)
+    except AssertionError as e:
+        tmp_dir.cleanup()
+        return fail(f"slice check: {e}")
     # --- phase 8: SLAM with loop closure; the m2m nn shapes from its bank;
     # phase 9: SLAM on the card against the CPU
     slam = slam_phase(dev, SEED, main_res["fps"])
@@ -1557,6 +1868,14 @@ def main() -> int:
     except AssertionError as e:
         return fail(f"kernel check: {e}")
     agree_slam = agree_slam_phase(dev, SEED)
+    # --- phase 10: the SLAM run's map
+    try:
+        assembly = assembly_phase(slam.pop("scans"), slam["poses"], dev,
+                                  tmp_dir.name)
+    except AssertionError as e:
+        return fail(f"slice check: {e}")
+    finally:
+        tmp_dir.cleanup()
     kernels_line = []
     by_name = {}
     for r in rows:
@@ -1577,6 +1896,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "slam_launches": slam["launches"][name]})
+        if name == "pca_moments":
+            # the GICP source covariances' shape and the gicp run's launches
+            kernels_line[-1]["gicp"] = {
+                k: baseline["gicp_pca"][k] for k in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err", "launches")}
         if name == "nn_grouped":
             # the back end's shapes: one m2m ICP iteration, its launches
             # those of the SLAM run's back end
@@ -1585,11 +1910,40 @@ def main() -> int:
                                     "bound_ms", "bound_by")}
             kernels_line[-1]["m2m"]["launches"] = \
                 slam["backend_launches"]["nn_grouped"]
-    # the probe's kernels, with the launches of the probe's own run
-    kernels_line += probe["entries"]
+    # the probe's kernels: count_within at the map assembly's shape with the
+    # filter's launches (the probe's run kept as a record), adj_stack with
+    # the probe's own
+    for e in probe["entries"]:
+        if e["name"] == "count_within":
+            e["probe"] = {k: e[k] for k in ("shape", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "launches")}
+            e.update({k: assembly[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "launches")})
+        kernels_line.append(e)
+    # device times that came from traces which lost events (device_ms took
+    # the mean of the launches they kept), listed on each kernel's row
+    from mulls_tpu_torch.tools.roofline import PARTIAL_TRACES
+    for e in kernels_line:
+        base = "nn_grouped" if e["name"] == "nn" else e["name"]
+        partial = [t for t in PARTIAL_TRACES
+                   if re.search(rf"\b{base}_kernel\b", t["kernel"])]
+        if partial:
+            e["device_ms_from_partial_traces"] = [
+                {k: t[k] for k in ("kept", "calls", "ms")} for t in partial]
+    if PARTIAL_TRACES:
+        print(f"[timing] {len(PARTIAL_TRACES)} device times from traces "
+              f"that lost events, marked on their kernels' rows", flush=True)
 
     problems = []
-    for name, k in launches.items():  # the four counters of the main path
+    if not repeat_equal:
+        problems.append(f"two main runs from seed {SEED} differ: end errors "
+                        f"{main_res['end_err_m']} and {again['end_err_m']}")
+    if assembly["launches"] <= 0:
+        problems.append("the map filter launched no count_within")
+    for name in MAIN_KERNELS:  # the four counters of the main path
+        k = launches[name]
         if k <= 0:
             problems.append(f"kernel {name} was not launched on the main "
                             f"path")
@@ -1627,7 +1981,8 @@ def main() -> int:
 
     # the SLAM path: every kernel of the front end launched during it, and
     # the back end's own map-to-map searches
-    for name, k in slam["launches"].items():
+    for name in MAIN_KERNELS:
+        k = slam["launches"][name]
         if k <= 0:
             problems.append(f"kernel {name} was not launched on the SLAM "
                             f"path")
@@ -1673,13 +2028,16 @@ def main() -> int:
 
     if args.out:
         slam_rec = {k: v for k, v in slam.items()
-                    if k not in ("backend", "cfg")}
+                    if k not in ("backend", "cfg", "poses")}
+        main_res.pop("poses")
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels_line,
                        "kernel_rows": rows, "probe": probe, "main": main_res,
                        "agree": agree, "profile": prof, "slam": slam_rec,
-                       "m2m_nn": m2m, "agree_slam": agree_slam}, f, indent=1,
-                      default=float)
+                       "m2m_nn": m2m, "agree_slam": agree_slam,
+                       "assembly": assembly, "baseline": baseline,
+                       "cli": cli, "main_repeat_end_err_m":
+                       again["end_err_m"]}, f, indent=1, default=float)
     if problems:
         for p in problems:
             print(f"[FAIL] {p}", flush=True)

@@ -7,7 +7,9 @@ Usage:
   python -m mulls_tpu_torch.apps.eval_run \
       --est_pose_file out/pose_b_lo.txt --gt_pose_file 00.txt \
       [--calib_file calib.txt] [--timing_file timing.txt] \
-      [--plot_dir out/plots] [--json_out out/eval.json]
+      [--plot_dir out/plots] [--json_out out/eval.json] \
+      [--point_cloud_folder scans/ --map_pcd_out out/map.pcd \
+       --map_bev_out out/map.png [--device cuda]]
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ import numpy as np
 
 from mulls_tpu_torch.eval import kitti_metrics
 from mulls_tpu_torch.io import kitti as kitti_io
+from mulls_tpu_torch.io.dataset import FolderDataset
+from mulls_tpu_torch.mapping.assembly import (accumulate_map,
+                                              radius_outlier_filter,
+                                              write_map_outputs)
 
 
 def adjacent_error_diagnosis(gt: np.ndarray, est: np.ndarray,
@@ -104,6 +110,9 @@ def main(argv=None) -> int:
     p.add_argument("--map_pcd_out", default=None)
     p.add_argument("--map_bev_out", default=None)
     p.add_argument("--map_voxel_size", type=float, default=0.25)
+    p.add_argument("--device", default="cuda",
+                   help="where the replayed map's outlier filter counts: "
+                        "cuda (default) | cpu")
     args = p.parse_args(argv)
 
     est = kitti_io.read_kitti_poses(args.est_pose_file)
@@ -127,9 +136,17 @@ def main(argv=None) -> int:
     if args.plot_dir:
         plot_outputs(gt, est, errs, timing, args.plot_dir)
     if args.point_cloud_folder and (args.map_pcd_out or args.map_bev_out):
-        # post-hoc replay rebuilds the map through mapping/assembly.py
-        raise SystemExit("--map_pcd_out / --map_bev_out: map assembly is "
-                         "not ported to mulls_tpu_torch yet")
+        # post-hoc replay: rebuild the registered map from the pose file,
+        # the headless stand-in for vis_slam's re-rendering, with the SLAM
+        # CLI's radius-outlier filter (the reference's replay writes the
+        # map unfiltered)
+        ds = FolderDataset(args.point_cloud_folder, n_raw=1 << 17)
+        pts = accumulate_map(ds, est[:len(ds)],
+                             voxel_res=args.map_voxel_size)
+        pts = radius_outlier_filter(pts, device=args.device)
+        write_map_outputs(pts, args.map_pcd_out, args.map_bev_out)
+        print(f"[eval] replayed map: {len(pts)} points")
+        report["map_points"] = int(len(pts))
     if args.json_out:
         os.makedirs(os.path.dirname(args.json_out) or ".", exist_ok=True)
         with open(args.json_out, "w") as f:

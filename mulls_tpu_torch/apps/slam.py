@@ -4,10 +4,12 @@ Runs LiDAR odometry, or with ``--loop_closure_detection_on`` the full SLAM
 pipeline (submaps, loop closure, PGO and the end-of-run refinement), over a
 scan folder on the card, and writes the reference program's outputs
 (`test/mulls_slam.cpp`): pose files in KITTI 3x4 format, a timing report,
-the pose-graph constraint file, checkpoints, during-run map snapshots and
-the KITTI drift evaluation when ground truth is given.  The NDT/VGICP
-baselines, map assembly and the feature / map viewers are not ported yet:
-their flags raise.
+the pose-graph constraint file, checkpoints, during-run map snapshots,
+the assembled map (pcd, BEV image, HTML viewer; its outlier filter counts
+neighbours on the card), one frame's feature clouds, a profiler trace and
+the KITTI drift evaluation when ground truth is given.
+``--baseline_reg_method ndt|gicp`` runs the NDT / VGICP baselines in place
+of MULLS-ICP.  Every flag of ``mulls_tpu/apps/slam.py`` is accepted.
 
 Usage:
   python -m mulls_tpu_torch.apps.slam \
@@ -32,22 +34,15 @@ from mulls_tpu_torch.config import (MullsConfig, apply_flag_overrides,
                                     gflag_bool, load_flagfile)
 from mulls_tpu_torch.eval import kitti_metrics
 from mulls_tpu_torch.io import kitti as kitti_io
-from mulls_tpu_torch.io.dataset import FolderDataset
+from mulls_tpu_torch.io.dataset import FolderDataset, SemanticKittiDataset
+from mulls_tpu_torch.io.pcd import write_pcd
+from mulls_tpu_torch.mapping.assembly import (accumulate_map,
+                                              radius_outlier_filter,
+                                              write_map_outputs)
+from mulls_tpu_torch.pipeline.baseline import BaselinePipeline
 from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
 from mulls_tpu_torch.pipeline.slam import SlamPipeline
-
-# flags whose path lives in modules this package does not carry yet
-_NOT_PORTED = {
-    "baseline_reg_method": "the NDT / VGICP baselines",
-    "semantic_kitti_label_folder": "the Semantic-KITTI dataset reader",
-    "output_map_pcd": "map assembly",
-    "write_out_map_on": "map assembly",
-    "write_map_each_frame": "map assembly",
-    "output_map_bev": "map assembly",
-    "output_map_html": "the HTML viewer",
-    "export_feature_frame": "the feature-cloud viewer export",
-    "profile_dir": "the profiler capture",
-}
+from mulls_tpu_torch.viz import export_html_viewer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,9 +87,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a WebGL snapshot of the live map / "
                         "trajectory / pose graph here every N submaps")
     p.add_argument("--map_snapshot_every_submaps", type=int, default=4)
-    for name in _NOT_PORTED:
-        p.add_argument(f"--{name}", default=None,
-                       help=f"not ported yet ({_NOT_PORTED[name]})")
+    p.add_argument("--baseline_reg_method", default="",
+                   help="replace MULLS-ICP with a baseline: ndt | gicp")
+    p.add_argument("--semantic_kitti_label_folder", default=None,
+                   help="Semantic-KITTI .label folder (enables the "
+                        "semantic-assisted extraction path)")
+    p.add_argument("--output_map_pcd", default=None,
+                   help="write the merged, outlier-filtered map cloud")
+    p.add_argument("--write_out_map_on", type=gflag_bool, nargs="?",
+                   const=1, default=0,
+                   help="write the merged map into "
+                        "--output_map_point_cloud_folder_path/merged_map.pcd "
+                        "(`mulls_slam.cpp:46,959-1028`)")
+    p.add_argument("--map_downrate_output", type=int, default=1,
+                   help="per-frame point stride for the output map "
+                        "(`mulls_slam.cpp:49,970`; the assembled map is "
+                        "also voxel-thinned by --map_voxel_size)")
+    p.add_argument("--write_out_gt_map_on", type=gflag_bool, nargs="?",
+                   const=1, default=0,
+                   help="assemble the map with gt poses instead of the "
+                        "estimated ones")
+    p.add_argument("--write_map_each_frame", type=gflag_bool, nargs="?",
+                   const=1, default=0,
+                   help="write each registered frame as its own pcd into "
+                        "--output_map_point_cloud_folder_path")
+    p.add_argument("--output_map_point_cloud_folder_path",
+                   default="map_out")
+    p.add_argument("--map_filter_on", type=gflag_bool, default=1,
+                   help="radius-outlier filter the assembled map (0|1), "
+                        "on --device")
+    p.add_argument("--output_map_bev", default=None,
+                   help="write a birds-eye height image of the map")
+    p.add_argument("--output_map_html", default=None,
+                   help="write a standalone interactive WebGL viewer (map, "
+                        "trajectory and pose-graph edges)")
+    p.add_argument("--map_voxel_size", type=float, default=0.25)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run "
+                        "(host and, on the card, CUDA activity) here")
+    p.add_argument("--export_feature_frame", type=int, default=None,
+                   help="write this frame's per-class feature clouds as pcd "
+                        "and a class-coloured HTML view")
+    p.add_argument("--export_feature_dir", default="feature_out")
     return p
 
 
@@ -103,32 +137,86 @@ def _write_poses(path, poses) -> None:
     kitti_io.write_kitti_poses(path, poses)
 
 
+def _export_features(ds, cfg, frame_idx: int, out_dir: str,
+                     device) -> None:
+    """One frame's per-class feature clouds as pcd files and a
+    class-coloured HTML view — the headless stand-in for the reference
+    program's feature viewer window (`map_viewer.h:101-224`)."""
+    from mulls_tpu_torch.core.cloud import RawCloud
+    from mulls_tpu_torch.core.device import resolve_device
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.frontend.features import extract_features
+    from mulls_tpu_torch.viz.html_viewer import CLASS_NAMES
+
+    dev = resolve_device(device)
+    frame = extract_features(RawCloud.from_numpy(ds[frame_idx], dev), cfg,
+                             GeneratorDraws(cfg.seed, dev))
+    os.makedirs(out_dir, exist_ok=True)
+    all_xyz, all_cls, all_i = [], [], []
+    for name, cloud in frame.full.items():
+        m = cloud.mask.cpu().numpy()
+        xyz = cloud.xyz.cpu().numpy()[m]
+        inten = cloud.intensity.cpu().numpy()[m]
+        write_pcd(os.path.join(out_dir, f"{frame_idx:06d}_{name}.pcd"), xyz,
+                  intensity=inten, normals=cloud.normal.cpu().numpy()[m])
+        print(f"[mulls_tpu_torch] {name}: {int(m.sum())} pts")
+        all_xyz.append(xyz)
+        all_cls.append(np.full(int(m.sum()), CLASS_NAMES.index(name)
+                               if name in CLASS_NAMES else 0, np.uint8))
+        all_i.append(inten)
+    export_html_viewer(
+        os.path.join(out_dir, f"{frame_idx:06d}_features.html"),
+        np.concatenate(all_xyz), np.concatenate(all_cls),
+        np.concatenate(all_i), title=f"frame {frame_idx} features")
+
+
 def main(argv=None) -> int:
     args, extra = build_parser().parse_known_args(argv)
-    for name, what in _NOT_PORTED.items():
-        val = getattr(args, name)
-        if val not in (None, "", "0", "false", "False"):
-            raise SystemExit(f"--{name}: {what} is not ported to "
-                             f"mulls_tpu_torch yet")
     cfg = load_flagfile(args.flagfile) if args.flagfile else MullsConfig()
     if extra:  # gflags parity: any --name=value accepted on the CLI
         cfg = apply_flag_overrides(cfg, extra)
+
+    if args.semantic_kitti_label_folder:
+        ds = SemanticKittiDataset(
+            args.point_cloud_folder, args.semantic_kitti_label_folder,
+            cfg.shapes.n_raw, begin=args.frame_num_begin,
+            end=args.frame_num_end, step=args.frame_step)
+        cfg = cfg.replace(feature=dataclasses.replace(
+            cfg.feature, semantic_assist_on=True))
+    else:
+        ds = FolderDataset(args.point_cloud_folder, cfg.shapes.n_raw,
+                           ext=args.pc_format, begin=args.frame_num_begin,
+                           end=args.frame_num_end, step=args.frame_step)
+    print(f"[mulls_tpu_torch] {len(ds)} frames from "
+          f"{args.point_cloud_folder}")
     if args.loop_closure_detection_on is not None:
         cfg = cfg.replace(submap=dataclasses.replace(
             cfg.submap,
             loop_closure_detection_on=bool(args.loop_closure_detection_on)))
-    if cfg.baseline.method:
-        raise SystemExit("the NDT / VGICP baselines are not ported to "
-                         "mulls_tpu_torch yet")
+    if args.baseline_reg_method:
+        cfg = cfg.replace(baseline=dataclasses.replace(
+            cfg.baseline, method=args.baseline_reg_method))
 
-    ds = FolderDataset(args.point_cloud_folder, cfg.shapes.n_raw,
-                       ext=args.pc_format, begin=args.frame_num_begin,
-                       end=args.frame_num_end, step=args.frame_step)
-    print(f"[mulls_tpu_torch] {len(ds)} frames from "
-          f"{args.point_cloud_folder}")
+    if args.export_feature_frame is not None:
+        _export_features(ds, cfg, args.export_feature_frame,
+                         args.export_feature_dir, args.device)
+
+    prof = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if args.device != "cpu":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
 
     backend = None
-    if cfg.submap.loop_closure_detection_on:
+    if cfg.baseline.method:
+        # the NDT / VGICP baselines in place of MULLS-ICP
+        # (`mulls_slam.cpp:195-198,634-639`)
+        res = BaselinePipeline(cfg, device=args.device).run(
+            ds, progress=args.progress)
+    elif cfg.submap.loop_closure_detection_on:
         # the full SLAM pipeline (submaps + loop closure + PGO,
         # `mulls_slam.cpp:451-628`)
         pipe = SlamPipeline(cfg, checkpoint_path=args.checkpoint_path,
@@ -147,6 +235,13 @@ def main(argv=None) -> int:
         res = OdometryPipeline(cfg, device=args.device).run(
             ds, progress=args.progress,
             profile=args.timing_report_file is not None)
+
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace.json")
+        prof.export_chrome_trace(trace)
+        print(f"[mulls_tpu_torch] profiler trace written to {trace}")
 
     poses_lidar = res.poses
     if args.output_lo_lidar_pose_file_path:
@@ -184,7 +279,6 @@ def main(argv=None) -> int:
             _write_poses(args.output_gt_lidar_pose_file_path, gt_lidar)
 
     # trajectory-as-pointcloud export (`dataio.hpp:2105-2123`)
-    from mulls_tpu_torch.io.pcd import write_pcd
     if args.lo_lidar_pose_point_cloud:
         write_pcd(args.lo_lidar_pose_point_cloud,
                   poses_lidar[:, :3, 3].astype(np.float32))
@@ -204,6 +298,47 @@ def main(argv=None) -> int:
             print("[mulls_tpu_torch] constraint output requested but no "
                   "pose graph was built (enable "
                   "--loop_closure_detection_on)")
+
+    if args.write_out_map_on and not args.output_map_pcd:
+        os.makedirs(args.output_map_point_cloud_folder_path, exist_ok=True)
+        args.output_map_pcd = os.path.join(
+            args.output_map_point_cloud_folder_path, "merged_map.pcd")
+    map_poses = (gt_lidar if (args.write_out_gt_map_on
+                              and gt_lidar is not None) else poses_lidar)
+    if args.write_map_each_frame:
+        # per-frame registered clouds (`--write_map_each_frame`)
+        os.makedirs(args.output_map_point_cloud_folder_path, exist_ok=True)
+        for i in range(min(len(ds), len(map_poses))):
+            d = ds[i]
+            xyz = d["xyz"][d["mask"]]
+            if args.map_downrate_output > 1:
+                xyz = xyz[::args.map_downrate_output]
+            T = map_poses[i]
+            moved = xyz @ T[:3, :3].T.astype(np.float32) \
+                + T[:3, 3].astype(np.float32)
+            write_pcd(os.path.join(args.output_map_point_cloud_folder_path,
+                                   f"{i:06d}.pcd"), moved)
+    if args.output_map_pcd or args.output_map_bev or args.output_map_html:
+        pts = accumulate_map(ds, map_poses, voxel_res=args.map_voxel_size,
+                             downrate=args.map_downrate_output)
+        if args.map_filter_on:
+            pts = radius_outlier_filter(pts, device=args.device)
+        write_map_outputs(pts, args.output_map_pcd, args.output_map_bev)
+        print(f"[mulls_tpu_torch] map assembled: {len(pts)} points")
+        if args.output_map_html:
+            # pose-graph edges anchored at each submap's first frame
+            traj = map_poses[:, :3, 3]
+            edges = None
+            if backend is not None and backend.edges:
+                anchor = [min(s.frame_begin, len(traj) - 1)
+                          for s in backend.submaps]
+                edges = [(anchor[e.i], anchor[e.j], e.kind)
+                         for e in backend.edges if e.kind >= 1]
+            n_emb = export_html_viewer(
+                args.output_map_html, pts, trajectory=traj, edges=edges,
+                title=os.path.basename(args.point_cloud_folder or "run"))
+            print(f"[mulls_tpu_torch] viewer ({n_emb} pts) -> "
+                  f"{args.output_map_html}")
 
     if gt_body is not None:
         m = min(len(gt_body), len(poses_body))

@@ -274,6 +274,8 @@ def _raster(xyz, mask, grid: int, res: float):
     flat = (ij[..., 0] * grid + ij[..., 1]).reshape(b, -1)
     flat = flat + torch.arange(b, device=xyz.device)[:, None] * grid * grid
     img = torch.zeros(b * grid * grid, dtype=f32, device=xyz.device)
+    # float atomics add these in any order, but they add ones: counts are
+    # exact in fp32 up to 2^24, so every order gives the same bits
     img.index_add_(0, flat.reshape(-1), ok.reshape(-1).to(f32))
     return torch.clamp(img.reshape(lead + (grid, grid)), max=3.0)
 

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.ops.segment import segment_sum
 
 f32 = torch.float32
 
@@ -220,18 +221,18 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
         r, Ja, Jb = _edge_res_and_jac(node_t, node_q, graph)
         rW, JaW, JbW = _weighted(r, Ja, Jb, sqrt_info, graph.edge_mask,
                                  robust_kernel, huber_delta)
-        # dense H (6M x 6M) by scatter-add of the 6x6 blocks
+        # dense H (6M x 6M): the 6x6 blocks summed into block (i, j), one
+        # segment id i * M + j each, in a fixed order
         Haa = torch.einsum("eki,ekj->eij", JaW, JaW)
         Hbb = torch.einsum("eki,ekj->eij", JbW, JbW)
         Hab = torch.einsum("eki,ekj->eij", JaW, JbW)
-        H = torch.zeros((m, m, 6, 6), dtype=f32, device=dev)
-        H.index_put_((ii, ii), Haa, accumulate=True)
-        H.index_put_((jj, jj), Hbb, accumulate=True)
-        H.index_put_((ii, jj), Hab, accumulate=True)
-        H.index_put_((jj, ii), Hab.transpose(-1, -2), accumulate=True)
-        g = torch.zeros((m, 6), dtype=f32, device=dev)
-        g.index_add_(0, ii, torch.einsum("eki,ek->ei", JaW, rW))
-        g.index_add_(0, jj, torch.einsum("eki,ek->ei", JbW, rW))
+        H = segment_sum(
+            torch.cat([Haa, Hbb, Hab, Hab.transpose(-1, -2)]),
+            torch.cat([ii * m + ii, jj * m + jj, ii * m + jj, jj * m + ii]),
+            m * m).reshape(m, m, 6, 6)
+        g = segment_sum(torch.cat([torch.einsum("eki,ek->ei", JaW, rW),
+                                   torch.einsum("eki,ek->ei", JbW, rW)]),
+                        torch.cat([ii, jj]), m)
         # freeze nodes + LM damping (+1e-8 keeps unconstrained nodes
         # solvable)
         Hd = H.permute(0, 2, 1, 3).reshape(m * 6, m * 6) + torch.diag(pin) \
@@ -295,10 +296,8 @@ def optimize_pose_graph_cg(graph: PoseGraph, iterations: int = 15,
                            graph.edge_mask, robust_kernel, huber_delta)
 
     def scatter(rows_a, rows_b, shape):
-        out = torch.zeros(shape, dtype=f32, device=dev)
-        out.index_add_(0, ii, rows_a)
-        out.index_add_(0, jj, rows_b)
-        return out
+        return segment_sum(torch.cat([rows_a, rows_b]), torch.cat([ii, jj]),
+                           shape[0])
 
     state = (graph.node_t, graph.node_q,
              torch.tensor(lm_lambda, dtype=f32, device=dev),

@@ -14,8 +14,10 @@ Reference semantics preserved:
   * ground normals: (0,0,1) | per-cell RANSAC plane (method 3)
 
 The reference's ``segment_max`` / ``segment_sum`` become
-``scatter_reduce("amax")`` / ``index_add_``; an empty segment keeps JAX's
-identity (the int32 minimum for a max).  The packed-int32 pick keys of the
+``scatter_reduce("amax")`` (exact in any order) / the order-fixed
+:func:`mulls_tpu_torch.ops.segment.segment_sum`, so a frame gives the same
+bits on every run; an empty segment keeps JAX's identity (the int32
+minimum for a max).  The packed-int32 pick keys of the
 reference (RANSAC member picks, min-z and min-range in ONE segment max)
 are kept as they are.
 """
@@ -29,6 +31,7 @@ import torch
 from mulls_tpu_torch.config import GroundFilterConfig, ShapeConfig
 from mulls_tpu_torch.core.draws import Draws
 from mulls_tpu_torch.ops.pca import eigh_sym3x3
+from mulls_tpu_torch.ops.segment import segment_sum
 
 _BIG = 1.0e30
 _INT32_MIN = -(1 << 31)
@@ -83,13 +86,6 @@ def _segment_max(data: torch.Tensor, seg: torch.Tensor,
                      dtype=data.dtype, device=data.device)
     index = seg[:, None].expand(-1, data.shape[1])
     return out.scatter_reduce_(0, index, data, "amax", include_self=False)
-
-
-def _segment_sum(data: torch.Tensor, seg: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return out.index_add_(0, seg, data)
 
 
 def fast_ground_filter(xyz: torch.Tensor, intensity: torch.Tensor,
@@ -168,8 +164,8 @@ def fast_ground_filter(xyz: torch.Tensor, intensity: torch.Tensor,
                             0.0)
 
     # occupancy count of the below points per cell (exact in f32: < 2^24)
-    seg_cnt = _segment_sum(below.to(torch.float32), cell_stat,
-                           num_cells + 1)[:num_cells]
+    seg_cnt = segment_sum(below.to(torch.float32), cell_stat,
+                          num_cells + 1)[:num_cells]
 
     min_z = seg_min_z.reshape(g, g)
     neigh_min_z = _min_pool3(min_z)
@@ -279,8 +275,8 @@ def fast_ground_filter(xyz: torch.Tensor, intensity: torch.Tensor,
                              x * zz, y * y, y * zz, zz * zz], -1)
         sel = torch.cat([inl, gm[:, None]], dim=1).to(torch.float32)
         blocks = sel[:, :, None] * feats[:, None, :]  # [n, n_hyp+1, 10]
-        msum = _segment_sum(blocks.reshape(n, (n_hyp + 1) * 10), gcell,
-                            num_cells + 1)[:num_cells]
+        msum = segment_sum(blocks.reshape(n, (n_hyp + 1) * 10), gcell,
+                           num_cells + 1)[:num_cells]
         msum = msum.reshape(num_cells, n_hyp + 1, 10)
         cnt_h = torch.where(ok_h, msum[:, :n_hyp, 0], -1.0)  # [C, n_hyp]
         best_h = torch.argmax(cnt_h, dim=1)  # [C], first maximum

@@ -14,12 +14,14 @@ at the root of the checkout) and bound with ``ctypes``.
   close sub-neighborhood (replaces ``moments_pallas``).
 * :func:`pca_moments` — query-centred PCA moments (replaces
   ``pca_moments_pallas``).
+* :func:`count_within` — per-query count of valid support within the
+  radius (replaces the roofline probe's ``_kernel_dist_only``); the map
+  assembly's outlier filter counts with it.
 
-The roofline probe's kernels (``csrc/count_within.cu``,
-``csrc/adj_stack.cu``) are built into the same library and bound here, but
-their wrappers and launch counts live with the probe, in
-:mod:`mulls_tpu_torch.tools.roofline`, as the TPU kernels they replace
-live in ``tools/perf_mfu_roofline.py``.
+The probe's other kernel (``csrc/adj_stack.cu``) is built into the same
+library and bound here, but its wrapper and launch count live with the
+probe, in :mod:`mulls_tpu_torch.tools.roofline`, as the TPU kernel it
+replaces lives in ``tools/perf_mfu_roofline.py``.
 
 Dispatch: a wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
@@ -261,13 +263,14 @@ def _dispatch(device: torch.device) -> bool:
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        for fn in (nn, nn_grouped, moments, pca_moments):
+        for fn in (nn, nn_grouped, moments, pca_moments, count_within):
             fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {"nn": nn.launches, "nn_grouped": nn_grouped.launches,
-            "moments": moments.launches, "pca_moments": pca_moments.launches}
+            "moments": moments.launches, "pca_moments": pca_moments.launches,
+            "count_within": count_within.launches}
 
 
 _count_lock = threading.Lock()
@@ -595,3 +598,56 @@ def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
 
 
 pca_moments.launches = 0
+
+
+# --------------------------------------------------------------------------
+# count of valid support within the radius
+# --------------------------------------------------------------------------
+
+_COUNT_PLAIN_CHUNK = 1024  # queries per block of the plain version
+
+
+def count_within_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                       p_mask: torch.Tensor, r2: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch count over [chunk, P] adjacency blocks."""
+    parts = []
+    for s in range(0, max(q_xyz.shape[0], 1), _COUNT_PLAIN_CHUNK):
+        d2 = sqdist_direct(q_xyz[s:s + _COUNT_PLAIN_CHUNK], p_xyz)
+        adj = p_mask[None, :] & (d2 <= r2[s:s + _COUNT_PLAIN_CHUNK, None])
+        parts.append(adj.sum(1).to(torch.float32))
+    return torch.cat(parts)
+
+
+def count_within(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                 p_mask: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """float32 [Q]: for each query, the number of valid support points with
+    ((q-p)_x^2 + (q-p)_y^2) + (q-p)_z^2 <= r2[q].
+
+    CUDA kernel: ``csrc/count_within.cu`` (replaces ``_kernel_dist_only``,
+    ``tools/perf_mfu_roofline.py:69-81``): query tiles x support chunks
+    merged by integer atomics, so the count equals the plain version
+    exactly in every launch."""
+    dev = q_xyz.device
+    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
+    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
+    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (pn,), dev)
+    _check("r2", r2, torch.float32, (qn,), dev)
+    if not _dispatch(dev):
+        return count_within_plain(q_xyz, p_xyz, p_mask, r2)
+    out = torch.empty((qn,), dtype=torch.float32, device=dev)
+    if qn == 0:  # nothing to launch
+        return out
+    n_tiles = -(-qn // COUNT_TILE_Q)
+    # arrival counters, then one int32 count word a query; all left at 0
+    _, counters = _scratch(q_xyz, 0, n_tiles + qn)
+    _check_launch(library().mulls_count_within(
+        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn,
+        _ptr(counters[n_tiles:]), _ptr(counters), _ptr(out),
+        _stream(q_xyz)), "count_within")
+    _count(count_within)
+    return out
+
+
+count_within.launches = 0

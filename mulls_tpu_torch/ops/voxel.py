@@ -7,6 +7,8 @@
 * :func:`dist_filter_mask` — ring distance filter (`cfilter.hpp:755-930`).
 * :func:`xy_normal_balanced_mask` — azimuth-sector-balanced budget used for
   facade/beam (`cfilter.hpp:551-605`).
+* :func:`random_downsample` — a random fixed budget (the baselines' frame
+  downsample).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from mulls_tpu_torch.core.draws import Draws
 
 _MASK32 = 0xFFFFFFFF
 
@@ -82,6 +86,18 @@ def voxel_downsample_mask(xyz: torch.Tensor, mask: torch.Tensor,
     table = torch.full((table_size,), n, dtype=torch.int64, device=xyz.device)
     table.scatter_reduce_(0, h, slot_val, "amin", include_self=True)
     return mask & (table[h] == idx)
+
+
+def random_downsample(mask: torch.Tensor, keep_num: int, draws: Draws
+                      ) -> torch.Tensor:
+    """Random mask with at most ``keep_num`` surviving valid points
+    (parity: `random_downsample_pcl`; the reference draws at
+    `ops/voxel.py:109`).  The k-th largest score decides what survives, so
+    the tie order of ``topk`` changes nothing."""
+    n = mask.shape[0]
+    score = torch.where(mask, draws.uniform((n,)).to(mask.device), -1.0)
+    kth = torch.topk(score, min(keep_num, n)).values[-1]
+    return mask & (score >= torch.clamp(kth, min=0.0))
 
 
 def xy_normal_balanced_mask(normal: torch.Tensor, mask: torch.Tensor,

@@ -1,12 +1,14 @@
 """The port's host side against the JAX package: the numpy readers and
 writers (copies), the KITTI drift metrics (a copy), the constraint-file
 writer (a copy), and the CLI ``python -m mulls_tpu_torch.apps.slam`` on a
-small scan folder, odometry and SLAM, on the CPU."""
+small scan folder, on the CPU: odometry, SLAM, the GICP baseline, the map
+outputs with a profiler trace, and one frame's feature export."""
 
 import time
 
 import numpy as np
 import pytest
+import torch
 
 import __graft_entry__ as ge
 from mulls_tpu.eval import kitti_metrics as jmetrics
@@ -94,12 +96,89 @@ def test_kitti_drift_metrics_match_reference():
     assert tmetrics.ate_rmse(gt, est) == jmetrics.ate_rmse(gt, est)
 
 
-@pytest.mark.parametrize("flag", ["--baseline_reg_method=ndt",
-                                  "--output_map_pcd=map.pcd"])
-def test_slam_cli_refuses_what_is_not_ported(scan_folder, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        tslam.main(["--point_cloud_folder", str(scan_folder / "velodyne"),
-                    "--device", "cpu", flag])
+@pytest.fixture
+def one_thread():
+    """The CLI runs thousands of small operations: on a CPU shared by the
+    suite's workers, one torch thread runs them faster than a pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_slam_cli_runs_the_gicp_baseline(scan_folder, tmp_path, monkeypatch,
+                                         one_thread):
+    """--baseline_reg_method=gicp runs BaselinePipeline in place of the
+    MULLS pipelines and tracks the 0.6 m/frame ground truth (at the
+    budgets of tests/test_pipeline.py's baseline test)."""
+    import dataclasses
+
+    def small():
+        cfg = ge._small_cfg()
+        return dataclasses.replace(cfg, baseline=dataclasses.replace(
+            cfg.baseline, frame_budget=4096, map_budget=8192,
+            table_resolution=1.8, voxel_down_size=0.5, max_iter=20))
+
+    monkeypatch.setattr(tslam, "MullsConfig", small)
+    out = tmp_path / "lo_lidar.txt"
+    assert tslam.main([
+        "--point_cloud_folder", str(scan_folder / "velodyne"),
+        "--device", "cpu", "--baseline_reg_method=gicp",
+        "--output_lo_lidar_pose_file_path", str(out)]) == 0
+    poses = tkitti.read_kitti_poses(str(out))
+    np.testing.assert_allclose(poses[:, :3, 3], _gt()[:, :3, 3], atol=0.1)
+
+
+def test_slam_cli_writes_the_map_outputs(scan_folder, tmp_path, monkeypatch,
+                                        one_thread):
+    """--output_map_pcd / _bev / _html with the outlier filter, and a
+    profiler trace, over the first two scans: the pcd is
+    ``accumulate_map`` and the filter applied to the poses the same run
+    wrote."""
+    import json
+
+    from mulls_tpu_torch.io.dataset import FolderDataset
+    from mulls_tpu_torch.mapping import assembly
+    monkeypatch.setattr(tslam, "MullsConfig", ge._small_cfg)
+    out = tmp_path / "lo_lidar.txt"
+    argv = ["--point_cloud_folder", str(scan_folder / "velodyne"),
+            "--device", "cpu", "--frame_num_end", "2",
+            "--output_lo_lidar_pose_file_path", str(out),
+            "--output_map_pcd", str(tmp_path / "map.pcd"),
+            "--output_map_bev", str(tmp_path / "map.png"),
+            "--output_map_html", str(tmp_path / "map.html"),
+            "--map_filter_on", "1", "--profile_dir", str(tmp_path / "prof")]
+    assert tslam.main(argv) == 0
+    for name in ("map.pcd", "map.png", "map.html"):
+        assert (tmp_path / name).stat().st_size > 0, name
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    ds = FolderDataset(str(scan_folder / "velodyne"),
+                       ge._small_cfg().shapes.n_raw, end=2)
+    want = assembly.radius_outlier_filter(
+        assembly.accumulate_map(ds, tkitti.read_kitti_poses(str(out))),
+        device="cpu")
+    got = t_read_pcd(str(tmp_path / "map.pcd"))["xyz"]
+    assert len(got) > 1000
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_slam_cli_exports_one_frames_features(scan_folder, tmp_path,
+                                              monkeypatch, one_thread):
+    """--export_feature_frame: the frame's per-class pcd files and the
+    class-coloured HTML view, before the run (of the second scan alone)."""
+    monkeypatch.setattr(tslam, "MullsConfig", ge._small_cfg)
+    feat = tmp_path / "feat"
+    assert tslam.main(["--point_cloud_folder", str(scan_folder / "velodyne"),
+                       "--device", "cpu", "--frame_num_begin", "1",
+                       "--frame_num_end", "2", "--export_feature_frame", "0",
+                       "--export_feature_dir", str(feat)]) == 0
+    counts = {}
+    for name in ("ground", "pillar", "facade", "beam", "roof", "vertex"):
+        counts[name] = len(t_read_pcd(str(feat / f"000000_{name}.pcd"))
+                           ["xyz"])
+    assert counts["ground"] > 100 and counts["facade"] > 50, counts
+    assert (feat / "000000_features.html").stat().st_size > 10_000
 
 
 def test_slam_cli_runs_odometry_on_a_scan_folder(scan_folder, tmp_path,
@@ -184,3 +263,13 @@ def test_eval_run_matches_reference(scan_folder, tmp_path):
                          "--json_out", str(out)]) == 0
         reports.append(json.loads(out.read_text()))
     assert reports[0] == reports[1]
+
+
+def test_slam_cli_accepts_every_flag_of_the_reference():
+    """The port's parser has every flag of ``mulls_tpu/apps/slam.py`` with
+    the reference's default (and ``--device``)."""
+    from mulls_tpu.apps import slam as jslam
+    ref = {a.dest: a.default for a in jslam.build_parser()._actions}
+    port = {a.dest: a.default for a in tslam.build_parser()._actions}
+    assert set(port) - set(ref) == {"device"}
+    assert {k: port[k] for k in ref} == ref

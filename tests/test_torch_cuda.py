@@ -271,7 +271,8 @@ def test_cuda_tensors_launch_the_kernels_and_count_once(dev, monkeypatch):
     torch.cuda.synchronize()
     # nn counts every launch of its kernel, nn_grouped its own
     assert kernels.launch_counts() == {"nn": 2, "nn_grouped": 1,
-                                       "moments": 1, "pca_moments": 1}
+                                       "moments": 1, "pca_moments": 1,
+                                       "count_within": 0}
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -416,9 +417,9 @@ def test_launch_counts_have_a_per_thread_view(dev):
         th.join()
     torch.cuda.synchronize()
     assert mine == {"nn": 1, "nn_grouped": 0, "moments": 0,
-                    "pca_moments": 0}
+                    "pca_moments": 0, "count_within": 0}
     assert seen == {"nn": 1, "nn_grouped": 1, "moments": 0,
-                    "pca_moments": 0}
+                    "pca_moments": 0, "count_within": 0}
     assert kernels.launch_counts()["nn"] == 2
 
 
@@ -540,3 +541,216 @@ def test_slam_backend_on_the_card_with_a_bank_of_two(dev):
     for s, r in zip(card.submaps, cpu.submaps):
         np.testing.assert_allclose(s.pose[:3, 3], r.pose[:3, 3], atol=0.01)
     assert card.launches["nn"] > 0 and cpu.launches["nn"] == 0
+
+
+# --- order-fixed float sums: the same input gives the same bits on every
+# run (float atomics would add in the scheduler's order)
+
+def test_ground_filter_repeats_its_bits_on_a_full_width_frame(dev):
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.ops.ground import fast_ground_filter
+    cfg = MullsConfig()
+    n = cfg.shapes.n_raw
+    rng = np.random.default_rng(50)
+    xyz = np.concatenate([
+        np.stack([rng.uniform(-60, 60, n // 2), rng.uniform(-60, 60, n // 2),
+                  0.03 * rng.normal(size=n // 2) - 1.7], -1),
+        rng.uniform([-60, -60, -1.5], [60, 60, 6.0], (n - n // 2, 3))])
+    xyz = torch.tensor(xyz, dtype=torch.float32, device=dev)
+    inten = torch.tensor(rng.uniform(0, 1, n), dtype=torch.float32,
+                         device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    runs = [fast_ground_filter(xyz, inten, mask, cfg.ground, cfg.shapes,
+                               GeneratorDraws(3, dev)) for _ in range(2)]
+    assert int(runs[0].is_ground.sum()) > 1000
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _graph(dev, m=16, seed=60):
+    """A 16-node chain with three loop edges, noisy measurements, node 0
+    fixed, as the back end builds it."""
+    from mulls_tpu_torch.backend.pgo import PoseGraph
+    from mulls_tpu_torch.core import se3
+    rng = np.random.default_rng(seed)
+    yaw = np.cumsum(rng.normal(0, 0.1, m))
+    t = np.cumsum(rng.normal(0, 2.0, (m, 3)) * [1, 1, 0.1], 0)
+    R = np.stack([[[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                   [0, 0, 1]] for a in yaw])
+    T = np.tile(np.eye(4), (m, 1, 1))
+    T[:, :3, :3], T[:, :3, 3] = R, t
+    pairs = [(k, k + 1) for k in range(m - 1)] + [(0, 8), (3, 12), (5, 15)]
+    meas = np.stack([np.linalg.inv(T[i]) @ T[j] for i, j in pairs])
+    meas[:, :3, 3] += rng.normal(0, 0.05, (len(pairs), 3))
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    drift = T.copy()
+    drift[:, :3, 3] += np.cumsum(rng.normal(0, 0.1, (m, 3)), 0)
+    return PoseGraph(
+        node_t=f(drift[:, :3, 3]),
+        node_q=se3.quat_from_rotation(f(drift[:, :3, :3])),
+        fixed=torch.arange(m, device=dev) == 0,
+        edge_i=torch.tensor([i for i, _ in pairs], device=dev),
+        edge_j=torch.tensor([j for _, j in pairs], device=dev),
+        edge_t=f(meas[:, :3, 3]),
+        edge_q=se3.quat_from_rotation(f(meas[:, :3, :3])),
+        edge_info=f(np.tile(np.eye(6) * 100.0, (len(pairs), 1, 1))),
+        edge_mask=torch.ones(len(pairs), dtype=torch.bool, device=dev))
+
+
+def test_dense_pgo_repeats_its_bits(dev):
+    from mulls_tpu_torch.backend.pgo import (optimize_pose_graph,
+                                             optimize_pose_graph_cg)
+    g = _graph(dev)
+    for solve in (optimize_pose_graph, optimize_pose_graph_cg):
+        a, b = solve(g), solve(g)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), solve.__name__
+        assert float(a[2]) < float(solve(g, iterations=0)[2])
+
+
+@pytest.mark.parametrize("mode", ["ndt", "gicp"])
+def test_voxel_table_repeats_its_bits_on_a_full_map(dev, mode):
+    from mulls_tpu_torch.ops.baseline_reg import build_voxel_table
+    rng = np.random.default_rng(61)
+    n = 40960  # BaselineConfig.map_budget
+    xyz = torch.tensor(rng.uniform([-50, -50, -2], [50, 50, 8], (n, 3)),
+                       dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.uniform(size=n) < 0.9, device=dev)
+    a = build_voxel_table(xyz, mask, 1.5, mode=mode)
+    b = build_voxel_table(xyz, mask, 1.5, mode=mode)
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)
+    c = build_voxel_table(xyz.cpu(), mask.cpu(), 1.5, mode=mode)
+    assert torch.equal(a.count.cpu(), c.count)
+    torch.testing.assert_close(a.mean.cpu(), c.mean, rtol=0, atol=2e-5)
+
+
+# --- the slice's kernels at its own shapes, through ops/kernels.py
+
+def test_count_within_at_the_map_assembly_shape(dev):
+    """4096 queries of a 10^6-point map against all of it: exact, the same
+    bits twice (the plain version in 256-query slices)."""
+    rng = np.random.default_rng(62)
+    p = torch.tensor(rng.uniform([-100, -100, -2], [100, 100, 10],
+                                 (1_000_000, 3)), dtype=torch.float32,
+                     device=dev)
+    pm = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+    q = p[:4096].contiguous()
+    r2 = torch.ones(4096, device=dev)
+    kernels.reset_launch_counts()
+    got, again = (kernels.count_within(q, p, pm, r2),
+                  kernels.count_within(q, p, pm, r2))
+    want = torch.cat([kernels.count_within_plain(q[s:s + 256], p, pm,
+                                                 r2[s:s + 256])
+                      for s in range(0, 4096, 256)])
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert float(got.min()) >= 1.0  # each query counts itself
+    assert kernels.launch_counts()["count_within"] == 2
+
+
+def test_pca_moments_at_the_gicp_shape(dev):
+    """The GICP source covariances' call: 16384 x 16384 at r = 1.0
+    (BaselineConfig.frame_budget, gicp_cov_radius), Morton-ordered
+    queries; counts exact, covariances within 1e-6 m^2, same bits."""
+    from mulls_tpu_torch.ops.pca import morton_order
+    rng = np.random.default_rng(63)
+    n = 16384
+    g = np.stack([rng.uniform(-40, 40, n), rng.uniform(-40, 40, n),
+                  0.02 * rng.normal(size=n) - 1.7], -1)
+    p = torch.tensor(g, dtype=torch.float32, device=dev)
+    pm = torch.tensor(rng.uniform(size=n) < 0.97, device=dev)
+    q = p[morton_order(p)].contiguous()
+    r2 = torch.ones(n, device=dev)
+    ck, sk, ok_ = kernels.pca_moments(q, p, pm, r2)
+    cp, sp, op = kernels.pca_moments_plain(q, p, pm, r2)
+    assert torch.equal(ck, cp)
+    err = (cov_from_moments(ck, sk, ok_) - cov_from_moments(cp, sp, op))
+    assert float(err.abs().max()) <= 1e-6
+    assert _same_bits(lambda: kernels.pca_moments(q, p, pm, r2))
+
+
+def test_radius_outlier_filter_runs_on_the_card(dev, monkeypatch):
+    """No host fallback: the plain count refuses, the kernel counts; the
+    card keeps what the CPU keeps."""
+    from mulls_tpu_torch.mapping.assembly import radius_outlier_filter
+    rng = np.random.default_rng(64)
+    pts = np.concatenate([rng.uniform(-5, 5, (20000, 3)),
+                          rng.uniform(-200, 200, (500, 3))]).astype(
+                              np.float32)
+    want = radius_outlier_filter(pts, chunk=7000, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(kernels, "count_within_plain", refuse)
+    kernels.reset_launch_counts()
+    got = radius_outlier_filter(pts, chunk=7000)
+    assert kernels.launch_counts()["count_within"] == 3
+    np.testing.assert_array_equal(got, want)
+    assert len(pts) - 500 <= len(got) < len(pts)
+
+
+@pytest.mark.parametrize("method", ["ndt", "gicp"])
+def test_baseline_pipeline_runs_on_the_card(dev, method, monkeypatch):
+    """BaselinePipeline on the card (the plain PCA moments refuse): codes
+    1 on a straight drive, the card within 2 cm / 0.2 deg of the CPU with
+    the same draws, and pca_moments launched for GICP."""
+    import dataclasses
+
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.pipeline.baseline import BaselinePipeline
+    base = MullsConfig()
+    # the budgets of the CPU parity test (tests/test_torch_baseline.py)
+    cfg = base.replace(baseline=dataclasses.replace(
+        base.baseline, method=method, frame_budget=4096, map_budget=8192,
+        table_resolution=1.8, voxel_down_size=0.5, max_iter=20))
+    rng = np.random.default_rng(65)
+    n = 30000
+    world = np.concatenate([
+        np.stack([rng.uniform(-40, 40, n), rng.uniform(-40, 40, n),
+                  0.03 * rng.normal(size=n) - 1.7], -1),
+        np.stack([np.where(rng.uniform(size=n) < 0.5, 12.0, -9.0)
+                  + 0.03 * rng.normal(size=n), rng.uniform(-40, 40, n),
+                  rng.uniform(-1.5, 4.0, n)], -1),
+        np.stack([rng.uniform(-40, 40, n), np.full(n, 25.0)
+                  + 0.03 * rng.normal(size=n), rng.uniform(-1.5, 4.0, n)],
+                 -1)]).astype(np.float32)
+    frames = []
+    for k in range(5):
+        local = world - np.float32([0.6 * k, 0.0, 0.0])
+        keep = np.linalg.norm(local[:, :2], axis=1) < 30.0
+        xyz = np.zeros((cfg.shapes.n_raw, 3), np.float32)
+        m = np.zeros(cfg.shapes.n_raw, bool)
+        sel = local[keep][:cfg.shapes.n_raw]
+        xyz[:len(sel)], m[:len(sel)] = sel, True
+        frames.append({"xyz": xyz, "intensity": np.zeros(cfg.shapes.n_raw,
+                                                         np.float32),
+                       "ts_ratio": np.zeros(cfg.shapes.n_raw, np.float32),
+                       "mask": m})
+
+    class Draws:
+        def __init__(self, where):
+            self.where, self.gen = where, torch.Generator().manual_seed(7)
+
+        def split(self, k):
+            return [self] * k
+
+        def uniform(self, shape):
+            return torch.rand(tuple(shape), generator=self.gen).to(self.where)
+
+    cpu = BaselinePipeline(cfg, device="cpu", draws=Draws("cpu")).run(frames)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(kernels, "pca_moments_plain", refuse)
+    kernels.reset_launch_counts()
+    card = BaselinePipeline(cfg, device=dev, draws=Draws(dev)).run(frames)
+    assert card.codes == cpu.codes == [1] * 5
+    rel = lambda P: np.linalg.inv(P[:-1]) @ P[1:]
+    for a, b in zip(rel(card.poses), rel(cpu.poses)):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 0.02
+    np.testing.assert_allclose(np.diff(card.poses[:, 0, 3])[1:], 0.6,
+                               atol=0.1)
+    assert (kernels.launch_counts()["pca_moments"] > 0) == (method == "gicp")

@@ -214,8 +214,11 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     r2 = torch.full((50,), 9.0)
     assert torch.equal(kernels.pca_moments(q, p, pm, r2)[0],
                        kernels.pca_moments_plain(q, p, pm, r2)[0])
+    assert torch.equal(kernels.count_within(q, p, pm, r2),
+                       kernels.count_within_plain(q, p, pm, r2))
     assert kernels.launch_counts() == {"nn": 0, "nn_grouped": 0,
-                                       "moments": 0, "pca_moments": 0}
+                                       "moments": 0, "pca_moments": 0,
+                                       "count_within": 0}
 
 
 def _nn_group(seed):
@@ -443,7 +446,7 @@ def test_launch_counters_under_thread_contention():
         sys.setswitchinterval(old)
     assert kernels.launch_counts() == {"nn": n_threads * per, "nn_grouped": 0,
                                  "moments": n_threads * per,
-                                 "pca_moments": 0}
+                                 "pca_moments": 0, "count_within": 0}
     assert all(r == {"nn": per, "nn_grouped": 0, "moments": per,
-                     "pca_moments": 0} for r in records)
+                     "pca_moments": 0, "count_within": 0} for r in records)
     kernels.reset_launch_counts()
