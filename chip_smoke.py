@@ -20,16 +20,26 @@ Phases (each prints its own line; any failure exits non-zero):
               the device (torch.profiler) and per call with CUDA events,
               the plain version and, where one exists, a library
               yardstick (timed here only).
-4. probe    — the roofline probe's two kernels (``count_within``,
-              ``adj_stack``) against their plain versions on the card: on
-              the probe's own inputs, and on a dense case from the scan
+4. probe    — the roofline probe's two kernels against their plain
+              versions on the card: ``count_within`` (a cell-grid count:
+              the support sorted into cells of side sqrt(max r2), one
+              thread a query walking the 27 cells around it) and
+              ``adj_stack`` (wgmma fed by TMA, merged across a cluster),
+              on the probe's own inputs and on a dense case from the scan
               (10240 x 20480 at r = 0.7) with ones, integer and random bf16
-              stacks, each twice for the same bits; then the same dense
-              case timed at r = 0.7, 1.0, 1.8 and 3.0 for pca_moments,
-              count_within (the floor), moments C=10 (the hit-sparse
-              form) and adj_stack C=16 and 128 (the dense form); then the
-              probe itself (``mulls_tpu_torch.tools.roofline.run_probe``)
-              with its launch counts, which must be > 0.
+              stacks: counts and integer stacks exact, random stacks
+              within the stated bound, each twice for the same bits.  The
+              library yardsticks at the probe shape (timed only): cdist +
+              compare + sum, and cdist + compare + a bf16 matmul.  Then
+              the dense case timed at r = 0.7, 1.0, 1.8 and 3.0 for
+              pca_moments, count_within (the kernel alone), moments C=10
+              (the hit-sparse form) and adj_stack C=16 and 128 (the dense
+              form); then the probe itself
+              (``mulls_tpu_torch.tools.roofline.run_probe``) with its
+              launch counts, which must be > 0; its rows give each
+              kernel's device ms alone and its call's whole device ms,
+              ``count_within`` bounded by the bytes and 10 operations a
+              hit, its walk's candidate pairs beside it.
 5. main     — ``OdometryPipeline`` at full width (``MullsConfig()``
               defaults: n_raw 131072, n_unground 20480) over ~32 frames of
               a synthetic world (>= 100k valid points per scan, made with
@@ -78,14 +88,20 @@ Phases (each prints its own line; any failure exits non-zero):
               10 cm / 1 deg (the bounds of tests/test_torch_slam.py).
 10. assembly — ``accumulate_map`` of the slam phase's 208 frames at its
               final poses (0.25 m voxels), then ``radius_outlier_filter``
-              on the card, one ``count_within`` launch per 200,000 queries
-              against the whole map.  On the first chunk the kernel's
-              counts equal the plain version's on the card exactly, two
-              launches give the same bits and the filter keeps what the
-              plain counts keep; the pcd, BEV image and HTML viewer are
-              written and not empty.  Prints the map size, the filter's
-              ms and the kernel's ms a launch (CUDA events; ~0.1 s a
-              launch) against its bound, and its launches.
+              on the card: one ``count_within`` call, the whole map
+              against itself (one cell index, one launch).  That call and
+              one on the first 200,000 queries each give the same bits
+              twice and, on those queries, the plain version's counts on
+              the card exactly; the filter keeps what the plain counts
+              keep; the pcd, BEV image and HTML viewer are written and
+              not empty.  Prints the map size, the filter's ms and
+              launches, and at both shapes the kernel's device ms
+              (torch.profiler, where the trace keeps its events), the
+              whole call's device ms and CUDA-event ms, the index build's
+              ms and the bound (the bytes, or 10 operations a hit); on the
+              chunk also the walk's candidate pairs, the brute-force
+              bound, and the plain version's and the library yardstick's
+              ms (cdist + compare + sum).
 11. baseline — ``BaselinePipeline`` with ``ndt`` and ``gicp`` at the default
               ``BaselineConfig`` over the main phase's 32 frames: codes 1
               or -1, finite fitness, frames/s and end error (recorded, not
@@ -536,6 +552,25 @@ def dense_case(scan: dict, rng: np.random.Generator, dev) -> tuple:
     return p[sel].contiguous(), p, pm
 
 
+def cdist_count(q, p, pm, r2, rows: int):
+    """The library yardstick of count_within (timed only, never called by
+    the port): torch.cdist, compare, sum, in query slices of ``rows``."""
+    import torch
+    r = r2.clamp(min=0).sqrt()
+    return torch.cat([((torch.cdist(q[s:s + rows], p) <= r[s:s + rows, None])
+                       & pm).sum(1) for s in range(0, q.shape[0], rows)])
+
+
+def cdist_stack(q, p, pm, r2, stack, rows: int):
+    """The library yardstick of adj_stack (timed only): torch.cdist,
+    compare, a bf16 matmul with the stack, in query slices of ``rows``."""
+    import torch
+    r = r2.clamp(min=0).sqrt()
+    return torch.cat([torch.matmul(
+        ((torch.cdist(q[s:s + rows], p) <= r[s:s + rows, None]) & pm).to(
+            torch.bfloat16), stack) for s in range(0, q.shape[0], rows)])
+
+
 def probe_phase(scan: dict, dev, seed: int) -> dict:
     import torch
     from mulls_tpu_torch.ops import kernels
@@ -595,6 +630,15 @@ def probe_phase(scan: dict, dev, seed: int) -> dict:
         lambda: rf.count_within_plain(q, p, pm, r2), 3),
         "adj_stack": rf.time_ms(
             lambda: rf.adj_stack_plain(q, p, pm, r2, ones), 3)}
+    library = {"count_within": rf.time_ms(
+        lambda: cdist_count(q, p, pm, r2, 4096), 3),
+        "adj_stack": rf.time_ms(
+            lambda: cdist_stack(q, p, pm, r2, ones, 4096), 3)}
+    print(f"[probe] library yardsticks at {qn}x{pn} (timed only; cdist "
+          f"expands the square, so its adjacency may differ on the radius): "
+          f"cdist + compare + sum {library['count_within']:.4f} ms, cdist + "
+          f"compare + bf16 matmul C=128 {library['adj_stack']:.4f} ms",
+          flush=True)
     del q, p, pm, r2, ones
 
     # (b) dense: the frame PCA's shape, 10240 queries (a subset of the
@@ -618,22 +662,29 @@ def probe_phase(scan: dict, dev, seed: int) -> dict:
 
     # the dense case timed for each form of the neighbourhood sum, as the
     # radius (and so the hits a query) grows: pca_moments and moments with
-    # ten columns are hit-sparse, adj_stack dense, count_within the floor
+    # ten columns are hit-sparse, adj_stack dense, count_within the
+    # cell-grid count (its kernel alone: the index is tensor ops)
     f10 = t(rng.uniform(size=(20480, 10)))
     dense = {}
     for r in (0.7, 1.0, 1.8, 3.0):
         r2 = torch.full((10240,), r ** 2, dtype=torch.float32, device=dev)
         hits = float(rf.count_within_plain(q, p, pm, r2).sum())
         row = {"hits_per_query": hits / 10240}
-        for name, fn in (
-                ("pca_moments", lambda: kernels.pca_moments(q, p, pm, r2)),
-                ("count_within", lambda: rf.count_within(q, p, pm, r2)),
-                ("moments C=10", lambda: kernels.moments(q, p, pm, r2, f10)),
+        for name, fn, kern in (
+                ("pca_moments", lambda: kernels.pca_moments(q, p, pm, r2),
+                 None),
+                ("count_within (cell grid)",
+                 lambda: rf.count_within(q, p, pm, r2),
+                 "count_within_kernel"),
+                ("moments C=10", lambda: kernels.moments(q, p, pm, r2, f10),
+                 None),
                 ("adj_stack C=16", lambda: rf.adj_stack(q, p, pm, r2,
-                                                        stacks[2][1])),
+                                                        stacks[2][1]),
+                 "adj_stack_kernel"),
                 ("adj_stack C=128", lambda: rf.adj_stack(q, p, pm, r2,
-                                                         stacks[3][1]))):
-            row[name] = rf.device_ms(fn, 20)[0]
+                                                         stacks[3][1]),
+                 "adj_stack_kernel")):
+            row[name] = rf.device_ms(fn, 20, kern)[0]
         dense[f"r={r}"] = row
         print(f"[probe] dense 10240x20480 (r = {r}, {hits / 10240:.1f} hits "
               f"a query), device ms: "
@@ -661,8 +712,13 @@ def probe_phase(scan: dict, dev, seed: int) -> dict:
             "launches": launches[name], "max_abs_err": err,
             "ms": r["device_ms"], "plain_ms": plain[name],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "shape": r["shape"]})
-    return {"entries": entries, "record": rec, "dense": dense}
+            "library_ms": library[name], "shape": r["shape"],
+            "event_ms": r["event_ms"],
+            "call_device_ms": r["call_device_ms"]})
+        if name == "count_within":
+            entries[-1]["candidate_pairs"] = r["candidate_pairs"]
+    return {"entries": entries, "record": rec, "dense": dense,
+            "library_ms": library}
 
 
 # --------------------------------------------------------------------------
@@ -1526,22 +1582,25 @@ def agree_slam_phase(dev, seed: int, n_frames: int = 26) -> dict:
 # phase 10: the map assembled from the SLAM run, filtered on the card
 # --------------------------------------------------------------------------
 
-ASSEMBLY_CHUNK = 200_000  # queries a count_within launch (the filter's)
+ASSEMBLY_CHUNK = 200_000  # the first chunk's queries: checked, timed
 
 
 def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
                    ) -> dict:
     """``accumulate_map`` of the SLAM run's frames at its final poses (0.25 m
-    voxels), then ``radius_outlier_filter`` on the card (one count_within
-    launch per 200,000 queries against the whole map).  On the first chunk:
-    the kernel's counts equal the plain version's on the card exactly (the
-    plain version in 128-query slices), two launches give the same bits,
-    and the filter keeps what the plain counts keep.  Writes the pcd, the
-    BEV image and the HTML viewer."""
+    voxels), then ``radius_outlier_filter`` on the card: one count_within
+    call, the whole map against itself.  That call gives the same bits
+    twice, and on its first 200,000 queries the plain version's counts on
+    the card (in 128-query slices) exactly; the filter keeps what the plain
+    counts keep there.  The kernel is timed at the filter's shape and on
+    that first chunk alone, the shape of the filter's launches when it
+    counted in chunks.
+    Writes the pcd, the BEV image and the HTML viewer."""
     import torch
     from mulls_tpu_torch.mapping import assembly as asm
     from mulls_tpu_torch.ops import kernels
-    from mulls_tpu_torch.tools.roofline import bound_ms, time_ms
+    from mulls_tpu_torch.tools.roofline import (bound_ms, call_device_ms,
+                                                device_ms, time_ms)
     from mulls_tpu_torch.viz import export_html_viewer
 
     t0 = time.perf_counter()
@@ -1552,7 +1611,7 @@ def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    kept = asm.radius_outlier_filter(pts, chunk=ASSEMBLY_CHUNK, device=dev)
+    kept = asm.radius_outlier_filter(pts, device=dev)
     stop.record()
     torch.cuda.synchronize()
     filter_ms = start.elapsed_time(stop)
@@ -1560,12 +1619,17 @@ def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
 
     p = torch.as_tensor(pts, device=dev)
     pm = torch.ones(pn, dtype=torch.bool, device=dev)
+    r2_map = torch.ones(pn, dtype=torch.float32, device=dev)
+    whole = kernels.count_within(p, p, pm, r2_map)  # the filter's call
+    if not same_bits(lambda: kernels.count_within(p, p, pm, r2_map)):
+        raise AssertionError("count_within at the filter's shape: two "
+                             "launches differ")
     q = p[:ASSEMBLY_CHUNK]
     qn = q.shape[0]
-    r2 = torch.ones(qn, dtype=torch.float32, device=dev)
+    r2 = r2_map[:qn]
     ck = kernels.count_within(q, p, pm, r2)
     if not same_bits(lambda: kernels.count_within(q, p, pm, r2)):
-        raise AssertionError("count_within at the assembly shape: two "
+        raise AssertionError("count_within at the assembly chunk: two "
                              "launches differ")
     start.record()
     cp = torch.cat([kernels.count_within_plain(q[s:s + 128], p, pm,
@@ -1574,21 +1638,52 @@ def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
     stop.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
-    if not torch.equal(ck, cp):
-        raise AssertionError(f"count_within at the assembly shape: "
-                             f"{int((ck != cp).sum())} counts differ")
+    for tag, got in (("the filter's call", whole[:qn]),
+                     ("the chunk's call", ck)):
+        if not torch.equal(got, cp):
+            raise AssertionError(f"count_within, {tag}: "
+                                 f"{int((got != cp).sum())} counts of the "
+                                 f"first chunk differ from the plain ones")
     keep_plain = pts[:qn][(cp >= 4).cpu().numpy()]
     if not np.array_equal(kept[:len(keep_plain)], keep_plain):
         raise AssertionError("the filter keeps other points than the plain "
                              "counts keep on the first chunk")
-    # ~0.1 s a launch: CUDA events around back-to-back launches time the
-    # kernel (the launch gap is microseconds), and this phase runs after
-    # the SLAM runs, after which torch.profiler's traces have lost events
-    ms = time_ms(lambda: kernels.count_within(q, p, pm, r2), 3, warmup=1)
-    hits = float(cp.sum())
-    b, by = bound_ms(10.0 * qn * pn, 16 * qn + 13 * pn + 4 * qn)
-    full_b, _ = bound_ms(10.0 * pn * pn, 33 * pn)
 
+    def timed(qq, rr) -> dict:
+        """The kernel's device ms (None where every trace lost its events;
+        this phase runs after the SLAM runs, after which traces have lost
+        events), the whole call's device ms (the index too), its CUDA-event
+        ms, and the index's alone with CUDA events."""
+        def fn():
+            return kernels.count_within(qq, p, pm, rr)
+
+        try:
+            kern = device_ms(fn, 10, "count_within_kernel")[0]
+        except AssertionError as e:  # every event lost: not measured
+            print(f"[assembly] count_within device time not measured: {e}",
+                  flush=True)
+            kern = None
+        return {"ms": kern,
+                "call_device_ms": call_device_ms(fn, 10,
+                                                 "count_within_kernel"),
+                "event_ms": time_ms(fn, 5),
+                "index_ms": time_ms(lambda: kernels.query_cells(
+                    qq, kernels.cell_index(p, pm, rr)), 5)}
+
+    def ms_txt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    # the function's bound: the bytes, and 10 operations a hit; the walk's
+    # candidate pairs beside it, and the brute-force form's 10 a pair
+    chunk, full = timed(q, r2), timed(p, r2_map)
+    hits, hits_map = float(cp.sum()), float(whole.sum())
+    cand = kernels.candidate_pairs(q, p, pm, r2)
+    nbytes = 16 * qn + 13 * pn + 4 * qn
+    b, by = bound_ms(10.0 * hits, nbytes)
+    b_map, by_map = bound_ms(10.0 * hits_map, 16 * pn + 13 * pn + 4 * pn)
+    brute_b, _ = bound_ms(10.0 * qn * pn, nbytes)
+    library_ms = time_ms(lambda: cdist_count(q, p, pm, r2, 2048), 1,
+                         warmup=1)
     files = {"pcd": os.path.join(out_dir, "map.pcd"),
              "bev": os.path.join(out_dir, "map_bev.png"),
              "html": os.path.join(out_dir, "map.html")}
@@ -1603,19 +1698,38 @@ def assembly_phase(frames: list, poses: np.ndarray, dev, out_dir: str
     print(f"[assembly] map of {len(frames)} frames at 0.25 m: {pn} points "
           f"({acc_s:.1f} s on the host), {len(kept)} kept by the filter in "
           f"{filter_ms:.1f} ms with CUDA events (upload, {launches} "
-          f"count_within launches, copy back; bound of the whole count "
-          f"{full_b:.3f} ms)", flush=True)
+          f"count_within call: the index and the launch, copy back)",
+          flush=True)
+    print(f"[assembly] count_within {pn}x{pn} (the filter's call, "
+          f"{hits_map / pn:.1f} hits a query): same bits twice, its first "
+          f"{qn} counts equal the plain ones; kernel "
+          f"{ms_txt(full['ms'])} on the device, the call "
+          f"{ms_txt(full['call_device_ms'])} on the device and "
+          f"{full['event_ms']:.4f} ms with CUDA events (the index "
+          f"{full['index_ms']:.4f} ms of it), bound {b_map:.5f} ms "
+          f"({by_map})", flush=True)
     print(f"[assembly] count_within {qn}x{pn} (the first chunk, r = 1.0, "
-          f"{hits / qn:.1f} hits a query): exact against the plain version "
-          f"on the card, same bits twice, the filter keeps what the plain "
-          f"counts keep; kernel {ms:.4f} ms a launch (CUDA events), plain "
-          f"{plain_ms:.1f} ms (128-query slices), library none, bound "
-          f"{b:.4f} ms ({by}); files {sizes}", flush=True)
+          f"{hits / qn:.1f} hits and {cand / qn:.1f} candidates a query): "
+          f"exact against the plain version on the card, same bits twice, "
+          f"the filter keeps what the plain counts keep; kernel "
+          f"{ms_txt(chunk['ms'])} on the device, the call "
+          f"{ms_txt(chunk['call_device_ms'])} on the device and "
+          f"{chunk['event_ms']:.4f} ms with CUDA events (the index "
+          f"{chunk['index_ms']:.4f} ms of it), plain {plain_ms:.1f} ms "
+          f"(128-query slices), library {library_ms:.1f} ms (cdist + "
+          f"compare + sum, 2048-query slices), bound {b:.5f} ms ({by}: "
+          f"10 operations a hit; {cand} candidate pairs in the walk; the "
+          f"brute-force bound {brute_b:.3f} ms); files {sizes}", flush=True)
     return {"points": pn, "kept": len(kept), "accumulate_s": acc_s,
             "filter_ms": filter_ms, "launches": launches,
-            "shape": f"{qn}x{pn}", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "full_bound_ms": full_b,
-            "hits_per_query": hits / qn, "files": sizes}
+            "shape": f"{qn}x{pn}", **chunk,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b, "bound_by": by, "candidate_pairs": cand,
+            "brute_force_bound_ms": brute_b,
+            "hits_per_query": hits / qn, "files": sizes,
+            "filter_call": {"shape": f"{pn}x{pn}", **full,
+                            "bound_ms": b_map, "bound_by": by_map,
+                            "hits_per_query": hits_map / pn}}
 
 
 # --------------------------------------------------------------------------
@@ -1915,12 +2029,16 @@ def main() -> int:
     # the probe's own
     for e in probe["entries"]:
         if e["name"] == "count_within":
-            e["probe"] = {k: e[k] for k in ("shape", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
+            e["probe"] = {k: e[k] for k in ("shape", "ms", "call_device_ms",
+                                            "event_ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by", "candidate_pairs",
                                             "launches")}
             e.update({k: assembly[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "launches")})
+                "shape", "ms", "call_device_ms", "event_ms", "index_ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "candidate_pairs", "brute_force_bound_ms", "launches",
+                "filter_call")})
         kernels_line.append(e)
     # device times that came from traces which lost events (device_ms took
     # the mean of the launches they kept), listed on each kernel's row

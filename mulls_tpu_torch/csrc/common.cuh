@@ -1,7 +1,6 @@
-// Shared pieces of the brute-force neighborhood kernels (nn.cu,
-// moments.cu, pca_moments.cu, count_within.cu, adj_stack.cu): the squared
-// distance, the support-tile staging and the asynchronous copies that feed
-// it.
+// Shared pieces of the neighborhood kernels: the squared distance (all
+// five), and the support-tile staging and asynchronous copies that feed the
+// brute-force tiles of nn.cu, moments.cu and pca_moments.cu.
 //
 // Support is staged in shared memory as float4 (x, y, z, valid) so that
 // one 16-byte load per point feeds every thread that reads it.  Every
@@ -37,14 +36,6 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz,
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// 16 bytes; both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

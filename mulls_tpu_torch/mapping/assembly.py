@@ -75,12 +75,12 @@ def accumulate_map(dataset, poses: np.ndarray, voxel_res: float = 0.25,
 
 
 def radius_outlier_filter(points: np.ndarray, radius: float = 1.0,
-                          min_neighbors: int = 3, chunk: int = 200_000,
+                          min_neighbors: int = 3,
                           device="cuda") -> np.ndarray:
     """Drop points with too few neighbours (plays the role of the
     reference's pcl SOR, `mulls_slam.cpp:992-999`).  The whole map goes to
-    ``device`` once; each chunk of ``chunk`` queries is counted against all
-    of it by ``kernels.count_within`` (one launch a chunk on the card)."""
+    ``device`` once and is counted against itself by one
+    ``kernels.count_within`` call (one cell index, one launch on the card)."""
     if len(points) == 0:
         return points
     dev = resolve_device(device)
@@ -89,9 +89,7 @@ def radius_outlier_filter(points: np.ndarray, radius: float = 1.0,
     mask = torch.ones(len(points), dtype=torch.bool, device=dev)
     r2 = torch.full((len(points),), radius * radius, dtype=torch.float32,
                     device=dev)
-    counts = torch.cat([
-        kernels.count_within(pts[s:s + chunk], pts, mask, r2[s:s + chunk])
-        for s in range(0, len(points), chunk)])
+    counts = kernels.count_within(pts, pts, mask, r2)
     keep = (counts >= min_neighbors + 1).cpu().numpy()  # self counts
     return points[keep]
 

@@ -15,7 +15,8 @@ at the root of the checkout) and bound with ``ctypes``.
 * :func:`pca_moments` — query-centred PCA moments (replaces
   ``pca_moments_pallas``).
 * :func:`count_within` — per-query count of valid support within the
-  radius (replaces the roofline probe's ``_kernel_dist_only``); the map
+  radius (replaces the roofline probe's ``_kernel_dist_only``), walking the
+  27 cells around each query in the grid of :func:`cell_index`; the map
   assembly's outlier filter counts with it.
 
 The probe's other kernel (``csrc/adj_stack.cu``) is built into the same
@@ -50,13 +51,14 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,8 +79,10 @@ MOMENTS_TILE_Q, MOMENTS_CHUNK = 128, 1024
 # csrc/pca_moments.cu: queries per tile, the largest support chunk, points
 # per shared-memory stage
 PCA_TILE_Q, PCA_CHUNK, PCA_STAGE = 128, 1024, 256
-COUNT_TILE_Q, COUNT_CHUNK = 256, 512  # csrc/count_within.cu
-ADJ_MAX_C, ADJ_TILE_Q, ADJ_CHUNK = 128, 128, 2048  # csrc/adj_stack.cu
+COUNT_THREADS = 128  # csrc/count_within.cu: one query a thread
+# csrc/adj_stack.cu: the largest stack width, queries per tile, blocks per
+# tile (a cluster) and support points per TMA stage
+ADJ_MAX_C, ADJ_TILE_Q, ADJ_CLUSTER, ADJ_STAGE = 128, 128, 8, 128
 
 
 # --------------------------------------------------------------------------
@@ -174,10 +178,10 @@ def library() -> ctypes.CDLL:
     lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp,
                                       vp, vp, vp]
     lib.mulls_pca_moments.restype = i
-    lib.mulls_count_within.argtypes = [vp, vp, vp, vp, i, i, vp, vp, vp, vp]
+    lib.mulls_count_within.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
+                                       i, vp, vp]
     lib.mulls_count_within.restype = i
-    lib.mulls_adj_stack.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, vp, vp,
-                                    vp]
+    lib.mulls_adj_stack.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp]
     lib.mulls_adj_stack.restype = i
     for fn, want in ((lib.mulls_nn_geometry,
                       (NN_MAX_GROUP, NN_TILE_Q, NN_CHUNK)),
@@ -185,10 +189,9 @@ def library() -> ctypes.CDLL:
                       (MOMENTS_MAX_C, MOMENTS_TILE_Q, MOMENTS_CHUNK)),
                      (lib.mulls_pca_moments_geometry,
                       (PCA_TILE_Q, PCA_CHUNK, PCA_STAGE)),
-                     (lib.mulls_count_within_geometry,
-                      (COUNT_TILE_Q, COUNT_CHUNK)),
+                     (lib.mulls_count_within_geometry, (COUNT_THREADS,)),
                      (lib.mulls_adj_stack_geometry,
-                      (ADJ_MAX_C, ADJ_TILE_Q, ADJ_CHUNK))):
+                      (ADJ_MAX_C, ADJ_TILE_Q, ADJ_CLUSTER, ADJ_STAGE))):
         fn.argtypes, fn.restype = [ip] * len(want), None
         got = [ctypes.c_int() for _ in want]
         fn(*[ctypes.byref(g) for g in got])
@@ -205,8 +208,8 @@ _scratch_lock = threading.Lock()
 
 
 def _scratch(t: torch.Tensor, n_keys: int, n_counters: int):
-    """(merge words int64 [>= n_keys], int32 counters [>= n_counters]:
-    arrival counters, and count_within's count words) for the current
+    """(merge words int64 [>= n_keys], int32 arrival counters
+    [>= n_counters]) for the current
     stream of ``t``'s device.  Every launch leaves them as made (words at
     ``mulls_nn_empty_key()``, counters 0), so they are filled only when
     made or grown; kernels on one stream run in order, so they never share
@@ -619,15 +622,145 @@ def count_within_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     return torch.cat(parts)
 
 
+class CellIndex(NamedTuple):
+    """The valid support sorted by the key of its cell (:func:`cell_index`).
+
+    ``points`` float32 [N, 4]: (x, y, z, 1) in key order, N the valid
+    points; ``keys`` int64 [N], sorted; ``lo`` and ``top`` float64 [3] (on
+    the device), the box's low corner and the last cell along each axis;
+    ``h`` the cell side; ``dims`` the cells along x, y and z.  A point's
+    cell is ``floor((p - lo) / h)`` in float64, clamped to the grid, and its
+    key ``cx + dims[0] * (cy + dims[1] * cz)``."""
+    points: torch.Tensor
+    keys: torch.Tensor
+    lo: torch.Tensor
+    top: torch.Tensor
+    h: float
+    dims: Tuple[int, int, int]
+
+
+# The cell side is sqrt(max r2) times (1 + _CELL_MARGIN): a pair that the
+# float32 distance puts within r is then less than one cell apart along each
+# axis in the float64 cell coordinates, whose own rounding is ~1e-16.  The
+# side never goes below the box's extent / _MAX_CELLS, so keys stay below
+# 2^61, nor below _MIN_CELL metres.
+_CELL_MARGIN = 1e-5
+_MAX_CELLS = 1 << 20
+_MIN_CELL = 1e-6
+
+
+def _cells(xyz: torch.Tensor, lo: torch.Tensor, top: torch.Tensor,
+           h: float) -> torch.Tensor:
+    """int64 [N, 3]: the cell of each point, clamped to the grid; a NaN
+    coordinate (of a point that no compare counts) takes cell 0."""
+    u = torch.floor((xyz.to(torch.float64) - lo) / h)
+    u = torch.nan_to_num(u, nan=0.0, posinf=math.inf, neginf=-math.inf)
+    return torch.minimum(torch.clamp(u, min=0.0), top).to(torch.int64)
+
+
+def _keys(cells: torch.Tensor, dims: Tuple[int, int, int]) -> torch.Tensor:
+    return cells[:, 0] + dims[0] * (cells[:, 1] + dims[1] * cells[:, 2])
+
+
+def cell_index(p_xyz: torch.Tensor, p_mask: torch.Tensor,
+               r2: torch.Tensor) -> CellIndex:
+    """The grid index of ``csrc/count_within.cu``: the valid support sorted
+    (stably) by cell key, in a grid of side ``sqrt(max r2)`` plus a margin
+    over the valid support's bounding box.  Plain tensor ops on any device,
+    O(P) memory whatever the box, and one host sync (the box, the largest
+    radius and the number of valid points).
+
+    Non-finite values count nowhere unless a radius is infinite, so the
+    box holds the finite valid points, the side the largest non-NaN
+    radius: a NaN radius counts nothing, and an infinite one makes the
+    side infinite, a grid of one cell that every query walks whole."""
+    dev = p_xyz.device
+    m = (p_mask & torch.isfinite(p_xyz).all(1))[:, None]
+    f64 = torch.float64
+    none = torch.zeros(3, dtype=f64, device=dev)
+    host = torch.cat([
+        torch.where(m, p_xyz, math.inf).amin(0).to(f64) if len(p_xyz)
+        else none,
+        torch.where(m, p_xyz, -math.inf).amax(0).to(f64) if len(p_xyz)
+        else none,
+        (torch.where(torch.isnan(r2), -math.inf, r2).amax().to(f64)
+         if r2.numel() else none[0]).reshape(1),
+        p_mask.sum().to(f64).reshape(1),
+        m.sum().to(f64).reshape(1)]).cpu().tolist()
+    n = int(host[7])
+    lo, hi = (host[:3], host[3:6]) if host[8] else ([0.0] * 3, [0.0] * 3)
+    extent = max(b - a for a, b in zip(lo, hi))
+    h = max(math.sqrt(max(host[6], 0.0)) * (1.0 + _CELL_MARGIN),
+            extent / _MAX_CELLS, _MIN_CELL)
+    dims = tuple(int(math.floor((b - a) / h)) + 1 for a, b in zip(lo, hi))
+    # one copy to the device, made while its queue is empty after the sync
+    lo_top = torch.tensor([*lo, *(d - 1 for d in dims)], dtype=torch.float64,
+                          device=dev)
+    lo_t, top = lo_top[:3], lo_top[3:]
+    # invalid points take the largest key and sort past the valid ones
+    keys = torch.where(p_mask, _keys(_cells(p_xyz, lo_t, top, h), dims),
+                       torch.iinfo(torch.int64).max)
+    keys, order = torch.sort(keys, stable=True)
+    valid = p_xyz[order[:n]]
+    points = torch.cat([valid, torch.ones_like(valid[:, :1])], 1)
+    return CellIndex(points, keys[:n].contiguous(), lo_t, top, h, dims)
+
+
+def query_cells(q_xyz: torch.Tensor, index: CellIndex
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order int64 [Q], cells int64 [Q, 3]): the queries sorted stably by
+    the key of their cell (clamped to the grid), and the cell of query
+    ``order[i]`` at row i."""
+    cells = _cells(q_xyz, index.lo, index.top, index.h)
+    _, order = torch.sort(_keys(cells, index.dims), stable=True)
+    return order, cells[order]
+
+
+def neighbour_ranges(cells: torch.Tensor, index: CellIndex
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(start, end) int64 [Q, 9]: for each query cell, the ranges of
+    ``index.points`` in its 3 x 3 (y, z) neighbour rows, each the x-run of
+    up to three cells around it; an empty range outside the grid.  The
+    kernel finds the same ranges by binary search."""
+    dx, dy, dz = index.dims
+    x0 = torch.clamp(cells[:, 0] - 1, min=0)
+    x1 = torch.clamp(cells[:, 0] + 1, max=dx - 1)
+    starts, ends = [], []
+    for oz in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            y, z = cells[:, 1] + oy, cells[:, 2] + oz
+            inside = (y >= 0) & (y < dy) & (z >= 0) & (z < dz)
+            row = dx * (y + dy * z)
+            s = torch.searchsorted(index.keys, row + x0)
+            e = torch.searchsorted(index.keys, row + x1 + 1)
+            starts.append(torch.where(inside, s, 0))
+            ends.append(torch.where(inside, e, 0))
+    return torch.stack(starts, 1), torch.stack(ends, 1)
+
+
+def candidate_pairs(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
+                    p_mask: torch.Tensor, r2: torch.Tensor) -> int:
+    """The (query, support) pairs :func:`count_within`'s kernel forms on
+    these inputs: the valid support in the 27 cells around each query with
+    r2 >= 0.  A measure of the walk's own work, which its design sets; the
+    function's bound counts only the hits."""
+    index = cell_index(p_xyz, p_mask, r2)
+    order, cells = query_cells(q_xyz, index)
+    start, end = neighbour_ranges(cells, index)
+    walks = (r2[order] >= 0)[:, None]
+    return int(torch.where(walks, end - start, 0).sum())
+
+
 def count_within(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
                  p_mask: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """float32 [Q]: for each query, the number of valid support points with
     ((q-p)_x^2 + (q-p)_y^2) + (q-p)_z^2 <= r2[q].
 
     CUDA kernel: ``csrc/count_within.cu`` (replaces ``_kernel_dist_only``,
-    ``tools/perf_mfu_roofline.py:69-81``): query tiles x support chunks
-    merged by integer atomics, so the count equals the plain version
-    exactly in every launch."""
+    ``tools/perf_mfu_roofline.py:69-81``): the support sorted into a cell
+    grid by :func:`cell_index`, the queries sorted by the same key, and one
+    thread a query walking the 27 cells around it, so each count is one
+    integer sum and equals the plain version exactly in every launch."""
     dev = q_xyz.device
     qn, pn = q_xyz.shape[0], p_xyz.shape[0]
     _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
@@ -639,12 +772,12 @@ def count_within(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     out = torch.empty((qn,), dtype=torch.float32, device=dev)
     if qn == 0:  # nothing to launch
         return out
-    n_tiles = -(-qn // COUNT_TILE_Q)
-    # arrival counters, then one int32 count word a query; all left at 0
-    _, counters = _scratch(q_xyz, 0, n_tiles + qn)
+    index = cell_index(p_xyz, p_mask, r2)
+    order, cells = query_cells(q_xyz, index)
+    cells = cells.to(torch.int32).contiguous()
     _check_launch(library().mulls_count_within(
-        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn,
-        _ptr(counters[n_tiles:]), _ptr(counters), _ptr(out),
+        _ptr(q_xyz), _ptr(r2), _ptr(order), _ptr(cells), _ptr(index.points),
+        _ptr(index.keys), qn, index.keys.shape[0], *index.dims, _ptr(out),
         _stream(q_xyz)), "count_within")
     _count(count_within)
     return out

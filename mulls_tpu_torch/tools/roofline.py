@@ -6,11 +6,16 @@ measured matmul peaks, then two kernels that split the cost of a
 neighbourhood sum into its parts:
 
 * :func:`count_within` — per-query count of valid support within the
-  radius: the floor of any kernel that forms the distance tile and
-  compares it (replaces ``_variant`` with ``_kernel_dist_only``,
+  radius (replaces ``_variant`` with ``_kernel_dist_only``,
   ``tools/perf_mfu_roofline.py:69``).  CUDA: ``csrc/count_within.cu``,
   bound in :mod:`mulls_tpu_torch.ops.kernels` (the map assembly calls it
-  too) and imported here.
+  too) and imported here.  Its first design formed every pair's distance
+  and served as the dense distance floor of the package kernels; those
+  three have since been redesigned for the card, and it is now a cell-grid
+  count: its row times the kernel alone and the whole call (the index it
+  walks is built by tensor ops in the same call), and bounds it by the
+  bytes and 10 operations a hit; the candidate pairs of the 27 cells
+  around each query, the walk's own work, are printed beside it.
 * :func:`adj_stack` — the 0/1 adjacency times a [P, C] bf16 stack on the
   tensor cores, fp32 sums: the dense matmul form (replaces ``_variant``
   with ``_kernel_static_f``, ``tools/perf_mfu_roofline.py:84``).  CUDA:
@@ -51,7 +56,7 @@ import torch
 from mulls_tpu_torch.core.device import resolve_device
 from mulls_tpu_torch.ops import kernels
 from mulls_tpu_torch.ops.kernels import (_check, _check_launch, _dispatch,
-                                         _ptr, _scratch, _stream,
+                                         _ptr, _stream,
                                          count_within, count_within_plain,
                                          sqdist_direct)
 
@@ -105,8 +110,9 @@ def adj_stack(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
     with C a multiple of 16 up to 128, summed in fp32.
 
     CUDA kernel: ``csrc/adj_stack.cu`` (replaces ``_kernel_static_f``,
-    ``tools/perf_mfu_roofline.py:84-99``): mma.sync bf16 tensor-core tiles
-    with the adjacency formed in registers, chunks merged in chunk order, so
+    ``tools/perf_mfu_roofline.py:84-99``): wgmma bf16 products with the
+    adjacency formed in registers, the support streamed in by TMA, and its
+    eight parts merged in a fixed order across a thread-block cluster, so
     two launches give the same bits."""
     dev, qn, pn = _check_cloud(q_xyz, p_xyz, p_mask, r2)
     cn = stack.shape[1] if stack.dim() == 2 else -1
@@ -121,14 +127,13 @@ def adj_stack(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
     sums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
     if qn == 0:  # nothing to launch
         return sums
-    n_chunks = max(1, -(-pn // kernels.ADJ_CHUNK))
-    partial = (torch.empty((n_chunks, qn, cn), dtype=torch.float32,
-                           device=dev) if n_chunks > 1 else None)
-    _, counters = _scratch(q_xyz, 0, -(-qn // kernels.ADJ_TILE_Q))
+    # the support as float4 rows for the kernel's TMA copies; an invalid
+    # point is NaN, which no compare counts
+    p4 = torch.where(p_mask[:, None], p_xyz, float("nan"))
+    p4 = torch.cat([p4, torch.zeros_like(p4[:, :1])], 1)
     _check_launch(kernels.library().mulls_adj_stack(
-        _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), _ptr(stack), qn, pn,
-        cn, _ptr(partial), _ptr(counters), _ptr(sums), _stream(q_xyz)),
-        "adj_stack")
+        _ptr(q_xyz), _ptr(r2), _ptr(p4), _ptr(stack), qn, pn, cn, _ptr(sums),
+        _stream(q_xyz)), "adj_stack")
     adj_stack.launches += 1
     return sums
 
@@ -172,13 +177,17 @@ def time_ms(fn: Callable, iters: int, warmup: int = 2) -> float:
 PARTIAL_TRACES: list = []
 
 
-def device_ms(fn: Callable, iters: int) -> tuple:
+def device_ms(fn: Callable, iters: int, kernel: Optional[str] = None
+              ) -> tuple:
     """(device ms per call, device operations per call) of ``fn`` under
     ``torch.profiler``: the kernels' own time, without the host's launch
     gaps that CUDA events between calls of a short kernel also count.
 
-    Every call launches at least one kernel, so a trace with fewer device
-    events than calls lost some (seen in the kernel and probe phases of
+    With ``kernel``, only the device events whose name holds it count: the
+    time of that kernel alone, when ``fn`` also runs other device work
+    (``count_within``'s index).  Every call launches at least one kernel
+    (one of ``kernel``), so a trace with fewer such events than calls lost
+    some (seen in the kernel and probe phases of
     ``chip_smoke.py`` and after its threaded SLAM runs; why is not known).
     Such a trace is taken again, three times in all.  If all three lose
     events and the last one's all come from one kernel, the mean device
@@ -194,7 +203,8 @@ def device_ms(fn: Callable, iters: int) -> tuple:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and (kernel is None or kernel in e.name)]
         if len(kern) >= iters:
             return (sum(e.time_range.elapsed_us() for e in kern) / 1e3
                     / iters, len(kern) / iters)
@@ -210,6 +220,27 @@ def device_ms(fn: Callable, iters: int) -> tuple:
           f"{PARTIAL_TRACES[-1]['kernel'][:60]}: their mean device time, "
           f"{ms:.4f} ms", flush=True)
     return ms, 1.0
+
+
+def call_device_ms(fn: Callable, iters: int, kernel: str
+                   ) -> Optional[float]:
+    """Device ms per call of ``fn`` with every device operation it runs:
+    ``kernel`` and the wrapper's own tensor ops and copies.  A trace counts
+    when it holds exactly ``iters`` events of ``kernel``, one a call; after
+    three traces that do not, None (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if sum(kernel in e.name for e in ops) == iters:
+            return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / iters
+    return None
 
 
 def host_ms(fn: Callable, iters: int) -> float:
@@ -284,13 +315,18 @@ def run_probe(device="cuda", inputs: Optional[dict] = None) -> dict:
                                device=dev)
 
     def row(name, shape, fn, ops, nbytes, precision="fp32",
-            useful_ops=None, note=""):
+            useful_ops=None, note="", kernel=None):
         """Times ``fn``.  ``ops`` at the peak of ``precision`` gives the
         achieved rate and the bound; where the kernel does more than the
         function needs (the dense form), ``useful_ops`` at the fp32 peak
-        gives the bound and ``ops`` the tensor floor."""
+        gives the bound and ``ops`` the tensor floor.  With ``kernel``,
+        the device time is that kernel's alone, and the call's whole
+        device time (the wrapper's own tensor ops too) is kept beside it."""
+        call = None
         if on_card:
-            ms, per_call = device_ms(fn, REPS)
+            ms, per_call = device_ms(fn, REPS, kernel)
+            if kernel is not None:
+                call = call_device_ms(fn, REPS, kernel)
             ev = time_ms(fn, REPS)
         else:
             ms, per_call, ev = host_ms(fn, REPS), None, None
@@ -302,6 +338,7 @@ def run_probe(device="cuda", inputs: Optional[dict] = None) -> dict:
         measured = rec.get(f"measured_peak_{precision}_tflops")
         r = {"kernel": name, "shape": shape, "precision": precision,
              "device_ms": ms if on_card else None, "event_ms": ev,
+             "call_device_ms": call,
              "host_ms": None if on_card else ms,
              "device_ops_per_call": per_call, "gflop": ops / 1e9,
              "achieved_tflops": ops / ms / 1e9,
@@ -317,6 +354,9 @@ def run_probe(device="cuda", inputs: Optional[dict] = None) -> dict:
         print(f"[probe] {name:13s} {shape:24s} "
             + (f"{ms:9.4f} ms device, {ev:9.4f} ms events"
                if on_card else f"{ms:9.4f} ms host")
+            + (f" (the call {call:.4f} ms device)" if call is not None
+               else " (the call's device ms not measured)"
+               if kernel is not None and on_card else "")
             + f"  {r['achieved_tflops']:8.3f} TFLOP/s {precision} "
             f"({100 * r['share_of_measured_peak']:5.1f} % of measured)  "
             f"bound {b:.5f} ms ({by}, {100 * r['bound_share']:.1f} %)"
@@ -362,14 +402,20 @@ def run_probe(device="cuda", inputs: Optional[dict] = None) -> dict:
     row("pca_moments", shape, lambda: kernels.pca_moments(q, p, pm, r2),
         10.0 * pairs + 15.0 * hits, 16 * qn + 13 * pn + 40 * qn,
         note=f"{hits / qn:.3f} hits a query")
+    # the function needs the bytes and 10 operations a hit; the walk's
+    # candidate pairs are its design's work, a diagnostic
+    cand = kernels.candidate_pairs(q, p, pm, r2)
     row("count_within", shape, lambda: count_within(q, p, pm, r2),
-        10.0 * pairs, 16 * qn + 13 * pn + 4 * qn, note="distance floor")
+        10.0 * hits, 16 * qn + 13 * pn + 4 * qn,
+        note=f"cell-grid count, {cand / qn:.2f} candidates a query",
+        kernel="count_within_kernel")["candidate_pairs"] = cand
     ones = torch.ones((pn, STACK_C), dtype=torch.bfloat16, device=dev)
     row("adj_stack", f"{shape}, C={STACK_C}",
         lambda: adj_stack(q, p, pm, r2, ones), 2.0 * STACK_C * pairs,
         16 * qn + 13 * pn + 2 * pn * STACK_C + 4 * qn * STACK_C, "bf16",
         useful_ops=10.0 * pairs + STACK_C * hits,
-        note="dense tensor-core form, static ones stack")
+        note="dense tensor-core form, static ones stack",
+        kernel="adj_stack_kernel")
 
     # moments (NCC descriptor counts) with C random features and close sums.
     # The tool passes no close radius (the TPU kernel then closes at d2 <=

@@ -97,9 +97,6 @@ def test_radius_outlier_filter_keeps_what_the_reference_keeps():
     got = ta.radius_outlier_filter(pts, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert 100 < len(pts) - len(got) < 400  # the sparse points go
-    # chunks of queries against the whole map: the same points
-    np.testing.assert_array_equal(
-        ta.radius_outlier_filter(pts, chunk=333, device="cpu"), want)
     assert len(ta.radius_outlier_filter(pts[:0], device="cpu")) == 0
 
 

@@ -20,6 +20,7 @@ import torch
 from mulls_tpu_torch.ops import kernels
 from mulls_tpu_torch.ops.neighbors import cov_from_moments
 from mulls_tpu_torch.tools import roofline as rf
+from test_torch_cells import NON_FINITE_KINDS, non_finite_case
 
 pytestmark = pytest.mark.cuda
 
@@ -283,12 +284,15 @@ def test_wrappers_refuse_mixed_devices(dev):
 
 # --- the roofline probe's kernels (mulls_tpu_torch/tools/roofline.py)
 
-# below, at and above count_within's tile (256), stage (256) and chunk
-# (512), and adj_stack's tile (128), stage (64), mma step (16) and chunk
-# (2048)
-_PROBE_SIZES = [(1, 1), (127, 63), (128, 64), (129, 65), (255, 511),
-                (256, 512), (257, 513), (130, 2049), (700, 5000),
-                (300, 9000)]
+# count_within takes one query a thread (128 a block) and walks a cell grid,
+# so its sizes matter only as counts of queries and points; adj_stack's
+# geometry: the warpgroup's m-tile (64 queries) and the block's tile (128),
+# the TMA stage (128 points), the k-step (16) and the cluster's eight parts
+# of the support in whole stages (P = 1024: one stage a block; 1025: two,
+# the last block's mostly past the end)
+_PROBE_SIZES = [(1, 1), (63, 15), (64, 16), (65, 17), (127, 127),
+                (128, 128), (129, 129), (130, 1024), (130, 1025),
+                (257, 2049), (700, 5000), (300, 9000)]
 
 
 def _probe_cloud(dev, seed, qn, pn):
@@ -301,14 +305,75 @@ def _probe_cloud(dev, seed, qn, pn):
 @pytest.mark.parametrize("qn,pn", _PROBE_SIZES)
 def test_count_within_kernel_equals_plain(dev, qn, pn):
     q, p, pm, r2 = _probe_cloud(dev, 20, qn, pn)
+    rf.reset_launch_counts()
     got = rf.count_within(q, p, pm, r2)
     assert got.dtype == torch.float32 and got.shape == (qn,)
     assert torch.equal(got, rf.count_within_plain(q, p, pm, r2))
-    # the scratch is left at zero: a second launch gives the same counts
+    # a second launch gives the same bits
     assert torch.equal(rf.count_within(q, p, pm, r2), got)
+    assert rf.launch_counts()["count_within"] == 2
 
 
-@pytest.mark.parametrize("c", [16, 48, 128])
+def _grid_case(kind, rng):
+    """The inputs of tests/test_torch_cells.py's cases, as numpy."""
+    if kind in NON_FINITE_KINDS:
+        return non_finite_case(kind, rng)
+    if kind == "lattice":  # on cell borders, exactly r apart
+        p = 3.25 + rng.integers(-6, 7, (2000, 3)) * 0.25
+        q = np.concatenate([p[:500], p[500:1500] + np.eye(3)[
+            rng.integers(0, 3, 1000)] * 0.25])
+        return q, p, np.ones(2000, bool), np.full(1500, 0.0625)
+    if kind == "just_inside_r":
+        q = rng.uniform(-50, 50, (4000, 3)).astype(np.float32)
+        axis = np.eye(3)[rng.integers(0, 3, 4000)] * rng.choice([-1, 1],
+                                                                (4000, 1))
+        p = np.concatenate([q + axis * 0.49995, q + axis * 0.25])
+        return q, p, np.ones(8000, bool), np.full(4000, 0.25)
+    if kind in ("masked_far_radii", "empty_support", "no_valid_support"):
+        n_p = 0 if kind == "empty_support" else 3000
+        p = rng.uniform(-20, 20, (n_p, 3))
+        pm = rng.uniform(size=n_p) < (0.0 if kind == "no_valid_support"
+                                      else 0.7)
+        q = rng.uniform(-20, 20, (1500, 3))
+        far = rng.uniform(size=1500) < 0.33
+        q[far] += rng.choice([-1, 1], (int(far.sum()), 3)) * 200.0
+        q[:5] = p[:5] if n_p else q[:5]
+        r2 = rng.choice([-1.0, 0.0, 1.0, 4.0, 25.0], 1500)
+        return q, p, pm, r2
+    if kind == "one_cell":
+        p = rng.uniform(-0.3, 0.3, (3000, 3))
+        q = rng.uniform(-0.6, 0.6, (1000, 3))
+        return q, p, np.ones(3000, bool), rng.uniform(0.01, 4.0, 1000)
+    # a kilometre at r = 0.05
+    centres = rng.uniform(-500, 500, (200, 2))
+    xy = centres[rng.integers(0, 200, 20000)] + rng.normal(0, 0.1,
+                                                          (20000, 2))
+    p = np.concatenate([xy, rng.uniform(-0.05, 0.05, (20000, 1))], 1)
+    q = p[:3000] + rng.normal(0, 0.02, (3000, 3))
+    return q, p, np.ones(20000, bool), np.full(3000, 0.0025)
+
+
+@pytest.mark.parametrize("kind", ["lattice", "just_inside_r",
+                                  "masked_far_radii", "empty_support",
+                                  "no_valid_support", "one_cell", "km",
+                                  *NON_FINITE_KINDS])
+def test_count_within_kernel_on_the_grid_edge_cases(dev, kind):
+    """The CPU index tests' cases on the card: exact, the same bits twice,
+    each launch counted."""
+    q, p, pm, r2 = _grid_case(kind, np.random.default_rng(24))
+    q, p, r2 = (torch.tensor(np.asarray(a, np.float32), device=dev)
+                for a in (q, p, r2))
+    pm = torch.tensor(pm, device=dev)
+    kernels.reset_launch_counts()
+    got, again = (kernels.count_within(q, p, pm, r2),
+                  kernels.count_within(q, p, pm, r2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.count_within_plain(q, p, pm, r2))
+    assert torch.equal(got, again)
+    assert kernels.launch_counts()["count_within"] == 2
+
+
+@pytest.mark.parametrize("c", [16, 32, 48, 64, 80, 96, 112, 128])
 @pytest.mark.parametrize("qn,pn", _PROBE_SIZES)
 def test_adj_stack_kernel_equals_plain(dev, c, qn, pn):
     q, p, pm, r2 = _probe_cloud(dev, 21, qn, pn)
@@ -678,15 +743,15 @@ def test_radius_outlier_filter_runs_on_the_card(dev, monkeypatch):
     pts = np.concatenate([rng.uniform(-5, 5, (20000, 3)),
                           rng.uniform(-200, 200, (500, 3))]).astype(
                               np.float32)
-    want = radius_outlier_filter(pts, chunk=7000, device="cpu")
+    want = radius_outlier_filter(pts, device="cpu")
 
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
     monkeypatch.setattr(kernels, "count_within_plain", refuse)
     kernels.reset_launch_counts()
-    got = radius_outlier_filter(pts, chunk=7000)
-    assert kernels.launch_counts()["count_within"] == 3
+    got = radius_outlier_filter(pts)
+    assert kernels.launch_counts()["count_within"] == 1
     np.testing.assert_array_equal(got, want)
     assert len(pts) - 500 <= len(got) < len(pts)
 

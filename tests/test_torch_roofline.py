@@ -181,9 +181,18 @@ def test_probe_rows_on_cpu_at_small_shapes(capsys):
     rows = {r["kernel"]: r for r in rec["rows"]}
     pairs = 400 * 400
     cw = rows["count_within"]
-    assert cw["gflop"] == pytest.approx(10.0 * pairs / 1e9)
+    # a cell-grid count: bounded by the bytes and 10 operations a hit; the
+    # candidate pairs of the 27 cells around a query, the walk's own work,
+    # are kept beside it
+    q, p = torch.from_numpy(x["q_map"]), torch.from_numpy(x["p"])
+    pm, r2 = torch.ones(400, dtype=torch.bool), torch.ones(400)
+    hits = float(rf.count_within_plain(q, p, pm, r2).sum())
+    cand = rf.kernels.candidate_pairs(q, p, pm, r2)
+    assert 0 < hits <= cand <= pairs
+    assert cw["candidate_pairs"] == cand and cw["call_device_ms"] is None
+    assert cw["gflop"] == pytest.approx(10.0 * hits / 1e9)
     assert cw["bound_ms"] == pytest.approx(max(
-        10.0 * pairs / rf.PEAK_FP32_FLOPS,
+        10.0 * hits / rf.PEAK_FP32_FLOPS,
         (16 * 400 + 13 * 400 + 4 * 400) / rf.PEAK_BYTES_PER_S) * 1e3)
     adj = rows["adj_stack"]
     assert adj["precision"] == "bf16"
