@@ -115,13 +115,43 @@ Phases (each prints its own line; any failure exits non-zero):
               ``--profile_dir`` (the trace must hold CUDA kernel events),
               then ``--baseline_reg_method gicp``; exit 0 and the files.
 
-The order of the run: 1-5, 11, 6, 7, 12, 8, 9, 10: the phases that read
-torch.profiler (3, 4, 7, 11) come first.  Its traces have lost device
-events, in the kernel and probe phases of some runs and after the
-threaded SLAM runs of others, for a reason not known.  A timing takes up
-to three traces; if all lose events, it takes the mean of the launches
-the last one kept, and the kernels line lists each such time on its
-kernel's row under ``device_ms_from_partial_traces``.
+13. reg     — ``mulls_tpu_torch.apps.reg.main`` at full width for every
+              coarse mode (the default GNC with its BEV fallback, ransac,
+              fpfh, bev, yaw4dof, none): the main phase's frame 0 as the
+              target (.bin), its frame 6 turned by 37 deg about its origin
+              as the source (.pcd).  Exit 0 and a finite transform in
+              every mode; the default within 0.3 m / 1 deg of the truth,
+              the others' errors recorded (the street looks alike after a
+              half turn, and the heading sweep's score prefers that
+              mode).  Then yaw4dof on two frames 6.5 m apart of the slam
+              phase's urban world (built so that no two facades look
+              alike), the source turned the same way: within 0.3 m /
+              1 deg.  Both sweeps run with ``--corr_dis_thre=6``: the
+              sweep starts each heading from zero translation, 6 m from
+              the truth.  nn_grouped, moments and pca_moments launched
+              in every mode and nn in fpfh; ms per mode.  Then ``nn`` at
+              the SAC-IA scoring call's own
+              inputs (512 x 256 queries) and ``nn_grouped`` at one
+              iteration of a heading seed: bit-equal to the plain
+              versions, the same bits twice, timed with the bound and
+              ``cdist`` + ``min``.
+14. merge   — two ``SlamPipeline`` sessions at full width (the default
+              config with loop closure on, 48 frames, 60 m, two submaps
+              each) on the main phase's street: A east from x = -30, B
+              back west 3 m to the side, each in its own frame 0, each
+              writing its checkpoint; then ``apps.map_merge.main``: exit
+              0, the session transform within 0.5 m / 1 deg of the truth,
+              >= 1 inter-session edge, the PGO accepted, B's merged frames
+              within 0.5 m of its truth, the pose files, pcd and HTML
+              written; ms of the vote pass, the fine edges and the PGO.
+
+The order of the run: 1-5, 11, 6, 7, 12, 13, 8, 9, 10, 14: the phases
+that read torch.profiler (3, 4, 7, 11, 13) come first.  Its traces have
+lost device events, in the kernel and probe phases of some runs and
+after the threaded SLAM runs of others, for a reason not known.  A timing
+takes up to three traces; if all lose events, it takes the mean of the
+launches the last one kept, and the kernels line lists each such time on
+its kernel's row under ``device_ms_from_partial_traces``.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -246,13 +276,13 @@ def post_map(world: np.ndarray, pose: np.ndarray, n: int,
     return local[rows], rng.uniform(size=n) >= 0.03
 
 
-class PcaTap:
-    """Records the arguments of ``kernels.pca_moments`` as ``module``
-    (default ``ops.pca``) calls it, while entered (every other name passes
-    through)."""
+class KernelTap:
+    """Records the arguments of ``kernels.<name>`` (default
+    ``pca_moments``) as ``module`` (default ``ops.pca``) calls it, while
+    entered (every other name passes through)."""
 
-    def __init__(self, module=None):
-        self.target = module
+    def __init__(self, module=None, name: str = "pca_moments"):
+        self.target, self.name = module, name
 
     def __enter__(self):
         from mulls_tpu_torch.ops import kernels
@@ -266,11 +296,14 @@ class PcaTap:
         self.module.kernels = self.kernels
 
     def __getattr__(self, name):
-        return getattr(self.kernels, name)
+        fn = getattr(self.kernels, name)
+        if name != self.name:
+            return fn
 
-    def pca_moments(self, *args):
-        self.calls.append(args)
-        return self.kernels.pca_moments(*args)
+        def tapped(*args):
+            self.calls.append(args)
+            return fn(*args)
+        return tapped
 
 
 def pca_cases(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
@@ -289,7 +322,7 @@ def pca_cases(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
     from mulls_tpu_torch.pipeline import odometry as odo
     cfg = MullsConfig()
     state = odo.init_state(cfg, dev)
-    with PcaTap() as tap:
+    with KernelTap() as tap:
         odo._feature_stage(state, pack_raw_host(scan, with_ts=False).to(dev),
                            cfg, state.draws)
     q, p, pm, r2 = tap.calls[0]
@@ -375,9 +408,7 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
         ms, ops = device_ms(lambda: kernels.nn(*pr), 50)
         ev = time_ms(lambda: kernels.nn(*pr), 50)
         plain = time_ms(lambda: kernels.nn_plain(*pr), 10)
-        q, _, p, pm = pr
-        p_far = torch.where(pm[:, None], p, torch.full_like(p, 1e18))
-        lib = time_ms(lambda: torch.cdist(q, p_far).min(dim=1), 10)
+        lib = time_ms(lambda: cdist_min([pr]), 10)
         flops, nbytes = 9.0 * qn * pn, qn * 13 + pn * 13 + qn * 8
         b, by = bound_ms(flops, nbytes)
         print(f"[kernels] nn {qn}x{pn}: equal to the plain version bit for "
@@ -401,6 +432,7 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
     five, five_ops = device_ms(lambda: [kernels.nn(*pr) for pr in group], 50)
     five_ev = time_ms(lambda: [kernels.nn(*pr) for pr in group], 50)
     plain = time_ms(lambda: kernels.nn_grouped_plain(group), 10)
+    lib = time_ms(lambda: cdist_min(group), 10)
     pairs = sum(qn * pn for qn, pn in icp_shapes)
     nbytes = sum(qn * 13 + pn * 13 + qn * 8 for qn, pn in icp_shapes)
     b, by = bound_ms(9.0 * pairs, nbytes)
@@ -410,12 +442,12 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
           f"{ms:.4f} ms on the device ({ops:.0f} launch per call; {ev:.4f} "
           f"ms per call with CUDA events); five nn launches {five:.4f} ms on "
           f"the device ({five_ops:.0f} launches; {five_ev:.4f} ms with CUDA "
-          f"events); plain {plain:.4f} ms, library none, bound {b:.5f} ms "
-          f"({by})", flush=True)
+          f"events); plain {plain:.4f} ms, cdist+min per class {lib:.4f} "
+          f"ms, bound {b:.5f} ms ({by})", flush=True)
     rows.append({"name": "nn_grouped", "shape": shape, "max_abs_err": 0.0,
                  "ms": ms, "event_ms": ev, "five_nn_ms": five,
                  "five_nn_event_ms": five_ev, "plain_ms": plain,
-                 "library_ms": None, "bound_ms": b, "bound_by": by})
+                 "library_ms": lib, "bound_ms": b, "bound_by": by})
 
     # --- moments: the NCC descriptor's two passes, 4096 x 20480
     p, pm, psel = cloud(20480, 0.95)
@@ -454,6 +486,9 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
     plain = (time_ms(lambda: kernels.moments_plain(q, p, pm, r2, ones), 5)
              + time_ms(lambda: kernels.moments_plain(q, p, pm, r2s, f6, cr2),
                        5))
+    lib = (time_ms(lambda: cdist_sums(q, p, pm, r2, ones, 4096), 5)
+           + time_ms(lambda: (cdist_sums(q, p, pm, r2s, f6, 4096),
+                              cdist_sums(q, p, pm, cr2, f6, 4096)), 5))
     pairs = 2.0 * 4096 * 20480
     hits1, hits2 = float(s1k[:, 0].sum()), float(s2k[:, 0].sum())
     close2 = float(c2k[:, 0].sum())
@@ -463,12 +498,12 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
     print(f"[kernels] moments 4096x20480 (C=1, then C=6 + close): counts "
           f"exact, max|err| {err:.3g}, same bits twice; kernel {ms:.4f} ms "
           f"on the device ({ev:.4f} ms with CUDA events), plain "
-          f"{plain:.4f} ms, library none, bound {b:.5f} ms ({by}); hits "
-          f"per query {hits1 / 4096:.1f} (pass 1), {hits2 / 4096:.1f} "
-          f"(pass 2)", flush=True)
+          f"{plain:.4f} ms, cdist+compare+matmul {lib:.4f} ms, bound "
+          f"{b:.5f} ms ({by}); hits per query {hits1 / 4096:.1f} (pass 1), "
+          f"{hits2 / 4096:.1f} (pass 2)", flush=True)
     rows.append({"name": "moments", "shape": "2 x 4096x20480",
                  "max_abs_err": err, "ms": ms, "event_ms": ev,
-                 "plain_ms": plain, "library_ms": None, "bound_ms": b,
+                 "plain_ms": plain, "library_ms": lib, "bound_ms": b,
                  "bound_by": by})
 
     # --- pca_moments: the frame's PCA as the main path calls it (Morton
@@ -515,6 +550,12 @@ def pca_check(shape: str, q, p, pm, r2) -> dict:
     ms = device_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)[0]
     ev = time_ms(lambda: kernels.pca_moments(q, p, pm, r2), 20)
     plain = time_ms(lambda: kernels.pca_moments_plain(q, p, pm, r2), 3)
+    # the yardstick: the count, sums and uncentred second moments as one
+    # matmul of the 0/1 adjacency with a [P, 10] stack
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    stack = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
+                         y * y, y * z, z * z], 1)
+    lib = time_ms(lambda: cdist_sums(q, p, pm, r2, stack, 2048), 3)
     hits = float(ck.sum())
     # 10 operations a pair for the distance and the compare, 15 a hit (the
     # probe's count)
@@ -528,10 +569,10 @@ def pca_check(shape: str, q, p, pm, r2) -> dict:
           f"({int(full.sum())} queries, median lambda_3 "
           f"{float(lam_p[full].median()):.3g} m^2), same bits twice; "
           f"kernel {ms:.4f} ms on the device ({ev:.4f} ms with CUDA "
-          f"events), plain {plain:.4f} ms, library none, bound {b:.5f} ms "
-          f"({by})", flush=True)
+          f"events), plain {plain:.4f} ms, cdist+compare+matmul {lib:.4f} "
+          f"ms, bound {b:.5f} ms ({by})", flush=True)
     return {"name": "pca_moments", "shape": shape, "max_abs_err": err,
-            "ms": ms, "event_ms": ev, "plain_ms": plain, "library_ms": None,
+            "ms": ms, "event_ms": ev, "plain_ms": plain, "library_ms": lib,
             "bound_ms": b, "bound_by": by, "hits_per_query": hits / qn}
 
 
@@ -559,6 +600,26 @@ def cdist_count(q, p, pm, r2, rows: int):
     r = r2.clamp(min=0).sqrt()
     return torch.cat([((torch.cdist(q[s:s + rows], p) <= r[s:s + rows, None])
                        & pm).sum(1) for s in range(0, q.shape[0], rows)])
+
+
+def cdist_sums(q, p, pm, r2, feats, rows: int):
+    """The library yardstick of moments and pca_moments (timed only):
+    torch.cdist, compare, an fp32 matmul of the 0/1 adjacency with the
+    [P, C] features, in query slices of ``rows``."""
+    import torch
+    r = r2.clamp(min=0).sqrt()
+    return torch.cat([torch.matmul(
+        ((torch.cdist(q[s:s + rows], p) <= r[s:s + rows, None]) & pm).to(
+            torch.float32), feats) for s in range(0, q.shape[0], rows)])
+
+
+def cdist_min(group):
+    """The library yardstick of nn and nn_grouped (timed only): torch.cdist
+    and min for each problem, masked support moved out of reach."""
+    import torch
+    return [torch.cdist(q, torch.where(pm[:, None], p,
+                                       torch.full_like(p, 1e18))).min(dim=1)
+            for q, _, p, pm in group]
 
 
 def cdist_stack(q, p, pm, r2, stack, rows: int):
@@ -1461,13 +1522,7 @@ def m2m_nn_check(slam: dict, dev) -> dict:
     ms, ops = device_ms(lambda: kernels.nn_grouped(group), 50)
     ev = time_ms(lambda: kernels.nn_grouped(group), 50)
     plain = time_ms(lambda: kernels.nn_grouped_plain(group), 5)
-
-    def lib():
-        for q, _, p, pm in group:
-            torch.cdist(q, torch.where(pm[:, None], p,
-                                       torch.full_like(p, 1e18))).min(dim=1)
-
-    lib_ms = time_ms(lib, 5)
+    lib_ms = time_ms(lambda: cdist_min(group), 5)
     nbytes = sum(q * 13 + p * 13 + q * 8 for q, p in shapes)
     bnd, by = bound_ms(9.0 * pairs, nbytes)
     shape = " + ".join(f"{q}x{p}" for q, p in shapes)
@@ -1771,7 +1826,7 @@ def baseline_phase(frames: list, gt: np.ndarray, dev, seed: int) -> dict:
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with PcaTap(baseline_reg) as tap:
+        with KernelTap(baseline_reg) as tap:
             res = pipe.run(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1887,6 +1942,311 @@ def cli_phase(frames: list, out_dir: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 13: the pairwise-registration CLI, every coarse mode
+# --------------------------------------------------------------------------
+
+REG_YAW_DEG = 37.0  # the source's extra heading, off the sweep's 15-deg grid
+REG_BOUND = (0.3, 1.0)  # m, deg: the default mode and yaw4dof to the truth
+REG_SWEEP_GATE_M = 6.0  # yaw4dof's --corr_dis_thre (the default is 1.5)
+
+
+def rot_z(deg: float) -> np.ndarray:
+    T = np.eye(4)
+    a = math.radians(deg)
+    T[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+    return T
+
+
+def reg_phase(frames: list, gt: np.ndarray, dev, out_dir: str) -> dict:
+    """``mulls_tpu_torch.apps.reg.main`` at full width for every coarse
+    mode: the target is the main phase's frame 0 (written as KITTI .bin),
+    the source its frame 6 turned about its origin by 37 deg of yaw
+    (written as .pcd).  Every mode exits 0 with a finite transform; the
+    default (GNC with the BEV fallback) lands within 0.3 m / 1 deg of the
+    truth, the others' errors are recorded.  Then yaw4dof on frames 20
+    and 25 of the urban loop world, the source turned the same way,
+    within 0.3 m / 1 deg (both sweeps with the first gate widened to
+    6 m: the sweep starts every heading from zero translation).  Then ``nn`` at
+    the SAC-IA scoring call's own inputs and ``nn_grouped`` at one
+    iteration of a heading seed of the sweep, each against its plain
+    version (bit for bit, the same bits twice), timed."""
+    import torch
+    from mulls_tpu_torch.apps import reg as cli
+    from mulls_tpu_torch.backend import fpfh
+    from mulls_tpu_torch.io.dataset import write_point_cloud
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
+
+    tgt, src = frames[0], frames[6]
+    m_t, m_s = tgt["mask"], src["mask"]
+    o = lambda name: os.path.join(out_dir, name)
+    # KITTI .bin keeps intensity / 255, the pcd as it is
+    write_point_cloud(o("reg_target.bin"), tgt["xyz"][m_t],
+                      tgt["intensity"][m_t])
+    turned = src["xyz"][m_s] @ rot_z(REG_YAW_DEG)[:3, :3].T
+    write_point_cloud(o("reg_source.pcd"), turned, src["intensity"][m_s])
+    T_true = np.linalg.inv(gt[0]) @ gt[6] @ rot_z(-REG_YAW_DEG)
+    # the sweep again on the urban loop world of the slam phase (the
+    # bench's world, whose facades differ side to side): its frames 20 and
+    # 25, 6.5 m apart on a straight, the source turned the same way
+    rng = np.random.default_rng(SEED + 5)
+    urban = build_loop_world(rng)
+    poses = loop_trajectory(26, SLAM_STEP)
+    u_t, u_s = (simulate(urban, poses[k], len(tgt["mask"]), rng)
+                for k in (20, 25))
+    write_point_cloud(o("reg_urban_target.bin"), u_t["xyz"][u_t["mask"]],
+                      u_t["intensity"][u_t["mask"]])
+    write_point_cloud(o("reg_urban_source.pcd"),
+                      u_s["xyz"][u_s["mask"]] @ rot_z(REG_YAW_DEG)[:3, :3].T,
+                      u_s["intensity"][u_s["mask"]])
+    T_urban = np.linalg.inv(poses[20]) @ poses[25] @ rot_z(-REG_YAW_DEG)
+    modes = {}
+    sac_tap, sweep_tap = None, None
+    for mode in ("default", "ransac", "fpfh", "bev", "yaw4dof", "none",
+                 "yaw4dof_urban"):
+        pair = "reg_urban_" if mode == "yaw4dof_urban" else "reg_"
+        argv = ["--point_cloud_1_path", o(f"{pair}target.bin"),
+                "--point_cloud_2_path", o(f"{pair}source.pcd"),
+                "--output_point_cloud_path", o(f"reg_{mode}.pcd"),
+                "--json_out", o(f"reg_{mode}.json")]
+        if mode != "default":
+            argv += ["--coarse_reg", mode.split("_")[0]]
+        if mode.startswith("yaw4dof"):
+            # the sweep seeds the heading only, from zero translation; the
+            # source's origin is 6 m from the target's, beyond the default
+            # gate (1.5 m, candidates within 3.75 m), which finds too few
+            # correspondences at every seed
+            argv += [f"--corr_dis_thre={REG_SWEEP_GATE_M}"]
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "fpfh":
+            with KernelTap(fpfh, "nn") as sac_tap:
+                rc = cli.main(argv)
+        elif mode == "yaw4dof":
+            with NnTap() as sweep_tap:
+                rc = cli.main(argv)
+        else:
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"reg --coarse_reg {mode} exited {rc}")
+        with open(o(f"reg_{mode}.json")) as f:
+            rec = json.load(f)
+        T = np.asarray(rec["transform"])
+        if not (np.all(np.isfinite(T))
+                and os.path.getsize(o(f"reg_{mode}.pcd")) > 0):
+            raise AssertionError(f"reg {mode}: a non-finite transform or no "
+                                 f"output cloud")
+        dt, dr = motion_diff(T, T_urban if mode == "yaw4dof_urban"
+                             else T_true)
+        modes[mode] = {"ms": ms, "t_err_m": dt, "r_err_deg": dr,
+                       "launches": launches,
+                       **{k: v for k, v in rec.items() if k != "transform"}}
+        print(f"[reg] {mode}: exit 0 in {ms:.1f} ms (reading, both clouds' "
+              f"features, the coarse step, ICP, writing), {dt:.4f} m / "
+              f"{dr:.3f} deg from the truth; {rec}; launches {launches}",
+              flush=True)
+        if mode in ("default", "yaw4dof_urban") and not (
+                dt <= REG_BOUND[0] and dr <= REG_BOUND[1]):
+            raise AssertionError(f"reg {mode}: {dt} m / {dr} deg from the "
+                                 f"truth, above {REG_BOUND}")
+        for name in ("nn_grouped", "moments", "pca_moments"):
+            if launches[name] <= 0:
+                raise AssertionError(f"reg {mode}: {name} not launched")
+        if mode == "fpfh" and launches["nn"] <= launches["nn_grouped"]:
+            raise AssertionError("reg fpfh: no nn launch of its own")
+
+    # nn at the SAC-IA scoring call's own inputs (its first nn call)
+    q, qm, p, pm = sac_tap.calls[0]
+    got, want = kernels.nn(q, qm, p, pm), kernels.nn_plain(q, qm, p, pm)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("nn at the SAC-IA scoring shape differs from "
+                             "the plain version")
+    if not same_bits(lambda: kernels.nn(q, qm, p, pm)):
+        raise AssertionError("nn at the SAC-IA scoring shape: two launches "
+                             "differ")
+    qn, pn = q.shape[0], p.shape[0]
+    sac = {"shape": f"{qn}x{pn}", "launches": modes["fpfh"]["launches"]["nn"]
+           - modes["fpfh"]["launches"]["nn_grouped"]}
+    sac["ms"], _ = device_ms(lambda: kernels.nn(q, qm, p, pm), 20)
+    sac["event_ms"] = time_ms(lambda: kernels.nn(q, qm, p, pm), 20)
+    sac["plain_ms"] = time_ms(lambda: kernels.nn_plain(q, qm, p, pm), 3)
+    sac["library_ms"] = time_ms(lambda: cdist_min([(q, qm, p, pm)]), 3)
+    sac["bound_ms"], sac["bound_by"] = bound_ms(
+        9.0 * qn * pn, qn * 13 + pn * 13 + qn * 8)
+    sac["max_abs_err"] = 0.0
+    print(f"[kernels] nn at the SAC-IA scoring shape {sac['shape']} (512 "
+          f"hypotheses x 256 points against the facade + ground target): "
+          f"equal to the plain version bit for bit, same bits twice; kernel "
+          f"{sac['ms']:.4f} ms on the device ({sac['event_ms']:.4f} ms with "
+          f"CUDA events), plain {sac['plain_ms']:.4f} ms, cdist+min "
+          f"{sac['library_ms']:.4f} ms, bound {sac['bound_ms']:.5f} ms "
+          f"({sac['bound_by']}); {sac['launches']} nn launches of its own "
+          f"in the fpfh run", flush=True)
+
+    # nn_grouped at one ICP iteration of the sweep's first heading seed
+    group = sweep_tap.calls[0]
+    for k, ((ik, dk), (ip, dp)) in enumerate(zip(
+            kernels.nn_grouped(group), kernels.nn_grouped_plain(group))):
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            raise AssertionError(f"nn_grouped at the sweep's shapes, problem "
+                                 f"{k}: differs from the plain version")
+    if not same_bits(lambda: kernels.nn_grouped(group)):
+        raise AssertionError("nn_grouped at the sweep's shapes: two "
+                             "launches differ")
+    shapes = [(pr[0].shape[0], pr[2].shape[0]) for pr in group]
+    pairs = sum(a * b for a, b in shapes)
+    sweep = {"shape": " + ".join(f"{a}x{b}" for a, b in shapes),
+             "pairs": pairs, "launches_per_seed": len(sweep_tap.calls)
+             // max(1, round(360.0 / 15.0)),
+             "launches": modes["yaw4dof"]["launches"]["nn_grouped"]}
+    sweep["ms"], _ = device_ms(lambda: kernels.nn_grouped(group), 50)
+    sweep["event_ms"] = time_ms(lambda: kernels.nn_grouped(group), 50)
+    sweep["plain_ms"] = time_ms(lambda: kernels.nn_grouped_plain(group), 5)
+    sweep["library_ms"] = time_ms(lambda: cdist_min(group), 5)
+    sweep["bound_ms"], sweep["bound_by"] = bound_ms(
+        9.0 * pairs, sum(a * 13 + b * 13 + a * 8 for a, b in shapes))
+    sweep["max_abs_err"] = 0.0
+    print(f"[kernels] nn_grouped at one iteration of a heading seed "
+          f"({sweep['shape']}, {pairs:.3g} pairs): equal to the plain "
+          f"version bit for bit, same bits twice; {sweep['ms']:.4f} ms on "
+          f"the device ({sweep['event_ms']:.4f} ms with CUDA events), plain "
+          f"{sweep['plain_ms']:.4f} ms, cdist+min per class "
+          f"{sweep['library_ms']:.4f} ms, bound {sweep['bound_ms']:.5f} ms "
+          f"({sweep['bound_by']}); {sweep['launches_per_seed']} launches a "
+          f"seed, {sweep['launches']} in the sweep", flush=True)
+    launches = {k: sum(m["launches"][k] for m in modes.values())
+                for k in modes["default"]["launches"]}
+    return {"modes": modes, "sac_ia_nn": sac, "sweep_nn_grouped": sweep,
+            "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 14: two SLAM sessions of the street merged by the map-merge CLI
+# --------------------------------------------------------------------------
+
+MERGE_FRAMES = 48  # a session: 60 m of the street, two 30 m submaps
+MERGE_STEP = 1.25  # m/frame
+MERGE_BOUND = (0.5, 1.0)  # m, deg: the session transform to the truth
+
+
+def street_drive(x0: float, y0: float, yaw: float) -> np.ndarray:
+    """MERGE_FRAMES poses straight along the street from (x0, y0)."""
+    poses = []
+    for k in range(MERGE_FRAMES):
+        T = rot_z(math.degrees(yaw))
+        T[:2, 3] = [x0 + k * MERGE_STEP * math.cos(yaw),
+                    y0 + k * MERGE_STEP * math.sin(yaw)]
+        poses.append(T)
+    return np.stack(poses)
+
+
+def merge_phase(world: np.ndarray, dev, out_dir: str) -> dict:
+    """Two ``SlamPipeline`` sessions at full width with the default config
+    (loop closure on, 30 m submaps): A drives the street east from x = -30,
+    B drives it back west 3 m to the side, each in its own frame 0, each
+    writing its checkpoint; then ``mulls_tpu_torch.apps.map_merge.main``
+    on the two.  Checks exit 0, the session transform within 0.5 m / 1 deg
+    of the truth, >= 1 inter-session edge, the PGO accepted, B's merged
+    frame positions within 0.5 m of its truth in A's frame and the files
+    written."""
+    import dataclasses
+
+    import torch
+    from mulls_tpu_torch.apps import map_merge as cli
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.pipeline.slam import SlamPipeline
+
+    base = MullsConfig()
+    cfg = base.replace(submap=dataclasses.replace(
+        base.submap, loop_closure_detection_on=True))
+    rng = np.random.default_rng(SEED + 13)
+    gA = street_drive(-30.0, 0.0, 0.0)
+    gB = street_drive(30.0, 3.0, math.pi)
+    o = lambda name: os.path.join(out_dir, name)
+    sessions = []
+    for name, g in (("A", gA), ("B", gB)):
+        scans = [render_scan(world, T, base.shapes.n_raw, rng) for T in g]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SlamPipeline(cfg, segment=SLAM_SEGMENT, device=dev,
+                           checkpoint_path=o(f"session_{name}.ckpt")
+                           ).run(scans)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = [(s.frame_begin, s.frame_end) for s in res.backend.submaps]
+        sessions.append({"fps": MERGE_FRAMES / wall, "spans": spans,
+                         "codes_not_1": [c for c in res.codes[1:] if c != 1]})
+        print(f"[merge] session {name}: {MERGE_FRAMES} frames at "
+              f"{MERGE_FRAMES / wall:.2f} frames/s, submaps {spans}, codes "
+              f"other than 1 after the first: {sessions[-1]['codes_not_1']}",
+              flush=True)
+        if len(spans) < 2:
+            raise AssertionError(f"session {name}: {len(spans)} submap(s), "
+                                 f"two needed")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["--checkpoints",
+                   f"{o('session_A.ckpt')},{o('session_B.ckpt')}",
+                   "--output_dir", o("merged"),
+                   "--output_map_pcd", o("merged/map.pcd"),
+                   "--output_map_html", o("merged/map.html"),
+                   "--json_out", o("merged/merge.json"), "--progress"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"map_merge exited {rc}")
+    with open(o("merged/merge.json")) as f:
+        rec = json.load(f)
+    T_true = np.linalg.inv(gA[0]) @ gB[0]
+    T_s = np.asarray(rec["session_transforms"][1])
+    dt, dr = motion_diff(T_s, T_true)
+    poses_b = np.loadtxt(o("merged/session_1_pose.txt")).reshape(-1, 3, 4)
+    gt_b = np.einsum("ij,njk->nik", np.linalg.inv(gA[0]), gB)
+    pos_err = float(np.max(np.linalg.norm(poses_b[:, :3, 3]
+                                          - gt_b[:, :3, 3], axis=1)))
+    files = ["session_0_pose.txt", "session_1_pose.txt",
+             "merged_submap_poses.txt", "map.pcd", "map.html"]
+    sizes = {f: (os.path.getsize(o(f"merged/{f}"))
+                 if os.path.exists(o(f"merged/{f}")) else 0) for f in files}
+    tm = rec["timings_ms"]
+    print(f"[merge] map_merge: exit 0 in {ms:.1f} ms (reading both "
+          f"checkpoints, the vote pass {tm['vote']:.1f} ms, the fine edges "
+          f"{tm['edges']:.1f} ms, the PGO {tm['pgo']:.1f} ms, writing); "
+          f"{rec['inter_edges']} inter-session edges, PGO "
+          f"{'accepted' if rec['pgo_accepted'] else 'not accepted'}; session "
+          f"transform {dt:.4f} m / {dr:.3f} deg from the truth; session B's "
+          f"merged frames at most {pos_err:.4f} m from the truth; files "
+          f"{sizes}; launches {launches}", flush=True)
+    for ev in rec["events"]:
+        print(f"[merge]   {ev}", flush=True)
+    if not (dt <= MERGE_BOUND[0] and dr <= MERGE_BOUND[1]):
+        raise AssertionError(f"merge: the session transform is {dt} m / {dr}"
+                             f" deg from the truth, above {MERGE_BOUND}")
+    if rec["inter_edges"] < 1 or not rec["pgo_accepted"]:
+        raise AssertionError("merge: no inter-session edge or the PGO was "
+                             "not accepted")
+    if not pos_err <= MERGE_BOUND[0]:
+        raise AssertionError(f"merge: session B's frames up to {pos_err} m "
+                             f"from the truth")
+    if not all(sizes.values()):
+        raise AssertionError(f"merge: outputs missing or empty: {sizes}")
+    if launches["nn_grouped"] <= 0:
+        raise AssertionError("merge: no nn_grouped launch")
+    return {"sessions": sessions, "ms": ms, "timings_ms": tm,
+            "inter_edges": rec["inter_edges"],
+            "pgo_accepted": rec["pgo_accepted"], "t_err_m": dt,
+            "r_err_deg": dr, "pos_err_m": pos_err, "files": sizes,
+            "launches": launches, "events": rec["events"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -1971,6 +2331,10 @@ def main() -> int:
     tmp_dir = tempfile.TemporaryDirectory()
     try:
         cli = cli_phase(frames, tmp_dir.name)
+        # --- phase 13: the pairwise-registration CLI, every coarse mode
+        t0 = time.perf_counter()
+        reg = reg_phase(frames, gt, dev, tmp_dir.name)
+        print(f"[reg] phase {time.perf_counter() - t0:.1f} s", flush=True)
     except AssertionError as e:
         tmp_dir.cleanup()
         return fail(f"slice check: {e}")
@@ -1986,6 +2350,10 @@ def main() -> int:
     try:
         assembly = assembly_phase(slam.pop("scans"), slam["poses"], dev,
                                   tmp_dir.name)
+        # --- phase 14: two SLAM sessions merged by the map-merge CLI
+        t0 = time.perf_counter()
+        merge = merge_phase(world, dev, tmp_dir.name)
+        print(f"[merge] phase {time.perf_counter() - t0:.1f} s", flush=True)
     except AssertionError as e:
         return fail(f"slice check: {e}")
     finally:
@@ -2024,6 +2392,11 @@ def main() -> int:
                                     "bound_ms", "bound_by")}
             kernels_line[-1]["m2m"]["launches"] = \
                 slam["backend_launches"]["nn_grouped"]
+            # one iteration of a heading seed of the reg CLI's yaw4dof
+            kernels_line[-1]["yaw4dof"] = reg["sweep_nn_grouped"]
+        if name == "nn":
+            # FPFH-SAC's scoring call in the reg CLI's fpfh mode
+            kernels_line[-1]["sac_ia"] = reg["sac_ia_nn"]
     # the probe's kernels: count_within at the map assembly's shape with the
     # filter's launches (the probe's run kept as a record), adj_stack with
     # the probe's own
@@ -2040,6 +2413,10 @@ def main() -> int:
                 "candidate_pairs", "brute_force_bound_ms", "launches",
                 "filter_call")})
         kernels_line.append(e)
+    # the launches of the reg CLI (all six modes) and of the merge CLI
+    for e in kernels_line:
+        e["reg_launches"] = reg["launches"].get(e["name"], 0)
+        e["merge_launches"] = merge["launches"].get(e["name"], 0)
     # device times that came from traces which lost events (device_ms took
     # the mean of the launches they kept), listed on each kernel's row
     from mulls_tpu_torch.tools.roofline import PARTIAL_TRACES
@@ -2154,7 +2531,8 @@ def main() -> int:
                        "agree": agree, "profile": prof, "slam": slam_rec,
                        "m2m_nn": m2m, "agree_slam": agree_slam,
                        "assembly": assembly, "baseline": baseline,
-                       "cli": cli, "main_repeat_end_err_m":
+                       "cli": cli, "reg": reg, "merge": merge,
+                       "main_repeat_end_err_m":
                        again["end_err_m"]}, f, indent=1, default=float)
     if problems:
         for p in problems:

@@ -69,6 +69,25 @@ def choice(draws: Draws, n: int, shape, p: torch.Tensor) -> torch.Tensor:
     return ind.reshape(tuple(shape))
 
 
+_U32 = 0xFFFFFFFF
+
+
+def randint(draws: Draws, shape, lo: int, hi: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, lo, hi)`` (int32): the key splits
+    in two, each half draws 32 bits a value, and the two words combine by
+    a multiplier of 2^32 mod span (``jax/_src/random.py::_randint``); the
+    uint32 products wrap as there."""
+    k1, k2 = draws.split(2)
+    higher = k1.bits(shape).to(device)
+    lower = k2.bits(shape).to(device)
+    span = hi - lo if hi > lo else 1
+    multiplier = (((2 ** 16 % span) ** 2) & _U32) % span
+    offset = ((higher % span) * multiplier) & _U32
+    offset = ((offset + lower % span) & _U32) % span
+    return (lo + offset).to(torch.int64)
+
+
 def _kabsch(src, tgt, w):
     """Weighted rigid alignment: (R, t) minimizing |R s + t - q|^2_w.
     src/tgt: [..., N, 3], w: [..., N]."""

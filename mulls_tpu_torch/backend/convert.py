@@ -70,15 +70,12 @@ def _cloud(d: dict) -> FeatureCloud:
         for f in CLOUD_FIELDS})
 
 
-def backend_from_numpy(tree: dict, cfg: MullsConfig, device="cuda"
-                       ) -> SlamBackend:
-    """A back end on ``device`` from :func:`backend_to_numpy`'s tree.
-    Clouds arrive as host (CPU) tensors, and the newest
-    ``submap_bank_capacity`` submaps are uploaded into the bank
-    (``SlamBackend.rebuild_bank``), as a resumed run needs."""
-    be = SlamBackend(cfg, device)
+def submaps_from_numpy(tree: dict) -> list:
+    """Host-resident submaps (clouds and descriptors as CPU tensors, no
+    bank slot) from :func:`backend_to_numpy`'s tree."""
+    subs = []
     for d in tree["submaps"]:
-        sm = Submap(
+        subs.append(Submap(
             sid=int(d["sid"]), pose=np.array(d["pose"], np.float64),
             clouds={n: _cloud(c) for n, c in d["clouds"].items()},
             descriptors=VertexDescriptors(
@@ -92,14 +89,29 @@ def backend_from_numpy(tree: dict, cfg: MullsConfig, device="cuda"
             stable=bool(d.get("stable", False)),
             span_min_conf=float(d.get("span_min_conf", 1.0)),
             span_mean_conf=float(d.get("span_mean_conf", 1.0)),
-            local_bbx=_np(d.get("local_bbx")))
-        be.submaps.append(sm)
-    be.edges = [Edge(i=int(e["i"]), j=int(e["j"]),
-                     T=np.array(e["T"], np.float64),
-                     info=np.array(e["info"], np.float64),
-                     kind=int(e["kind"]), sigma=float(e["sigma"]),
-                     confidence=float(e["confidence"]))
-                for e in tree.get("edges", [])]
+            local_bbx=_np(d.get("local_bbx"))))
+    return subs
+
+
+def edges_from_numpy(tree: dict) -> list:
+    """The pose-graph edges of :func:`backend_to_numpy`'s tree."""
+    return [Edge(i=int(e["i"]), j=int(e["j"]),
+                 T=np.array(e["T"], np.float64),
+                 info=np.array(e["info"], np.float64),
+                 kind=int(e["kind"]), sigma=float(e["sigma"]),
+                 confidence=float(e["confidence"]))
+            for e in tree.get("edges", [])]
+
+
+def backend_from_numpy(tree: dict, cfg: MullsConfig, device="cuda"
+                       ) -> SlamBackend:
+    """A back end on ``device`` from :func:`backend_to_numpy`'s tree.
+    Clouds arrive as host (CPU) tensors, and the newest
+    ``submap_bank_capacity`` submaps are uploaded into the bank
+    (``SlamBackend.rebuild_bank``), as a resumed run needs."""
+    be = SlamBackend(cfg, device)
+    be.submaps = submaps_from_numpy(tree)
+    be.edges = edges_from_numpy(tree)
     be.events = list(tree.get("events", []))
     be.cooling = int(tree.get("cooling", 0))
     (be._accu_tran, be._accu_rot_deg, be._accu_frames) = tree.get(

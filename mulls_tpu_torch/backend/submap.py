@@ -211,14 +211,24 @@ def coarse_align_submaps(a: Submap, b: Submap, cfg: MullsConfig,
             bool(res.valid))
 
 
+def bev_stack_of(s: Submap, device="cuda"):
+    """The BEV feature stack (xyz, mask) of a submap as tensors on
+    ``device``: computed once and reused when many pairs are aligned (the
+    merge's fallback is all-pairs, so per-call stacks would be O(A*B)
+    instead of O(A+B))."""
+    return tuple(x.to(device) for x in cr.bev_feature_stack(s.clouds))
+
+
 def bev_align_submaps(a: Submap, b: Submap, grid: int = 320,
-                      res: float = 0.6, device="cuda"
-                      ) -> Tuple[np.ndarray, bool]:
+                      res: float = 0.6, device="cuda", stack_a=None,
+                      stack_b=None) -> Tuple[np.ndarray, bool]:
     """Global BEV FFT-correlation coarse alignment of submap b onto a —
     the fallback when NCC putative sets degrade (a dense (yaw, tx, ty)
-    basin search cannot miss the true mode for planar motion)."""
-    sx, sm_m = (x.to(device) for x in cr.bev_feature_stack(b.clouds))
-    tx, tm = (x.to(device) for x in cr.bev_feature_stack(a.clouds))
+    basin search cannot miss the true mode for planar motion).
+    ``stack_a`` / ``stack_b`` are :func:`bev_stack_of`'s stacks, when the
+    caller keeps them."""
+    tx, tm = stack_a if stack_a is not None else bev_stack_of(a, device)
+    sx, sm_m = stack_b if stack_b is not None else bev_stack_of(b, device)
     out = cr.coarse_reg_bev(sx, sm_m, tx, tm, grid=grid, res=res)
     return out.transform.cpu().numpy().astype(np.float64), bool(out.valid)
 

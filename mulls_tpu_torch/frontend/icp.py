@@ -33,6 +33,7 @@ from mulls_tpu_torch.config import RegConfig
 from mulls_tpu_torch.core import se3
 from mulls_tpu_torch.core.cloud import FeatureCloud, masked_max, masked_min
 from mulls_tpu_torch.core.tree import Struct
+from mulls_tpu_torch.ops import kernels
 from mulls_tpu_torch.ops.neighbors import (nearest_neighbor_grouped,
                                            normal_shooting_neighbor)
 
@@ -438,3 +439,96 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
     T[:3, :3] = se3.orthonormalize(T[:3, :3])
     return RegResult(transform=T, information=info, sigma=torch.sqrt(sigma2),
                      confidence=conf, process_code=code, iterations=it)
+
+
+def ground_3dof_estimate(source_ground: FeatureCloud,
+                         target_ground: FeatureCloud, cfg: RegConfig,
+                         init_guess: torch.Tensor,
+                         max_iter: int = 10) -> RegResult:
+    """LeGO-LOAM-style two-step variant: estimate only (tz, roll, pitch)
+    from ground point-to-plane correspondences (`lls_icp_3dof_ground`,
+    `cregistration.hpp:1443-1582, 2278-2320`).  The reference's
+    ``while_loop`` is a loop of ``max_iter`` steps that freezes its state
+    once done, as in :func:`mm_lls_icp`; each step's 1-NN is one launch of
+    the ``nn`` kernel on the card."""
+    dev = init_guess.device
+    f32 = torch.float32
+    cos_bearing = math.cos(math.radians(cfg.normal_bearing))
+    cols = torch.tensor([2, 3, 4], device=dev)
+    eye3 = torch.eye(3, dtype=f32, device=dev)
+    t_xyz = target_ground.xyz.contiguous()
+
+    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    T = init_guess.to(f32)
+    thre = torch.tensor(cfg.corr_dis_thre_init, dtype=f32, device=dev)
+    done = torch.tensor(False, device=dev)
+    sigma2 = torch.tensor(1.0, dtype=f32, device=dev)
+    for _ in range(max_iter):
+        s_xyz = se3.transform_points(T, source_ground.xyz)
+        s_dir = se3.rotate_vectors(T, source_ground.normal)
+        found = kernels.nn(s_xyz.contiguous(), source_ground.mask, t_xyz,
+                           target_ground.mask)
+        corr = _find_corres(found, s_xyz, s_dir, source_ground.mask,
+                            target_ground, thre, cos_bearing,
+                            normal_check=True)
+        q = target_ground.xyz[corr.t_idx]
+        tn = target_ground.normal[corr.t_idx]
+        w = corr.valid.to(f32)
+        _, _, J, d = _pt2pl_system(s_xyz, q, tn, w)
+        # columns (tz, alpha, beta) of the full 6-dof jacobian
+        J3 = J[:, cols]
+        ATA = (J3 * w[:, None]).T @ J3 + 1e-6 * eye3
+        ATb = (J3 * w[:, None]).T @ d
+        x3 = torch.linalg.solve_ex(ATA, ATb)[0]
+        x6 = torch.zeros((6,), dtype=f32, device=dev).index_copy(0, cols, x3)
+        r = J3 @ x3 - d
+        nobs = torch.clamp(torch.sum(w) - 3.0, min=1.0)
+        sigma2_new = torch.sum(w * r * r) / nobs
+        T_new = se3.from_x(x6) @ T
+        done_new = (it >= 2) & (torch.linalg.norm(x3) < cfg.converge_tran)
+        thre_new = torch.clamp(thre / cfg.dis_thre_update_rate,
+                               min=cfg.corr_dis_thre_min)
+        # freeze once done: the masked update equals the early exit
+        live = ~done
+        it = torch.where(live, it + 1, it)
+        T = torch.where(live, T_new, T)
+        thre = torch.where(live, thre_new, thre)
+        sigma2 = torch.where(live, sigma2_new, sigma2)
+        done = done | done_new
+    T = T.clone()
+    T[:3, :3] = se3.orthonormalize(T[:3, :3])
+    return RegResult(transform=T, information=torch.eye(6, device=dev),
+                     sigma=torch.sqrt(sigma2),
+                     confidence=torch.tensor(1.0, dtype=f32, device=dev),
+                     process_code=torch.tensor(1, dtype=torch.int32,
+                                               device=dev),
+                     iterations=it)
+
+
+def mm_lls_icp_4dof_global(source: Dict[str, FeatureCloud],
+                           target: Dict[str, FeatureCloud], cfg: RegConfig,
+                           heading_step_d: float = 15.0, max_iter: int = 12):
+    """TLS-style global registration: brute-force heading sweep, one
+    MULLS-ICP per trial yaw, keep the best (sigma, confidence) score
+    (`mm_lls_icp_4dof_global`, `cregistration.hpp:1584-1681`).  The
+    headings run one after another.  Returns the reference's 3-tuple
+    (RegResult of the best heading, its seed yaw in degrees, its score)."""
+    dev = next(iter(source.values())).xyz.device
+    f32 = torch.float32
+    n_try = max(int(round(360.0 / heading_step_d)), 1)
+    yaws = torch.tensor([math.radians(k * heading_step_d)
+                         for k in range(n_try)], dtype=f32, device=dev)
+    zero3 = torch.zeros(3, dtype=f32, device=dev)
+    results = []
+    for yaw in yaws:
+        init = se3.make_transform(zero3, torch.stack([0.0 * yaw, 0.0 * yaw,
+                                                      yaw]))
+        results.append(mm_lls_icp(source, target, cfg, init,
+                                  max_iter=max_iter))
+    code = torch.stack([r.process_code for r in results])
+    conf = torch.stack([r.confidence for r in results])
+    sigma = torch.stack([r.sigma for r in results])
+    score = torch.where(code == 1, conf / torch.clamp(sigma, min=1e-4),
+                        -1.0)
+    best = int(torch.argmax(score))  # the first maximum, as jnp.argmax
+    return results[best], torch.rad2deg(yaws[best]), score[best]
