@@ -144,8 +144,39 @@ Phases (each prints its own line; any failure exits non-zero):
               >= 1 inter-session edge, the PGO accepted, B's merged frames
               within 0.5 m of its truth, the pose files, pcd and HTML
               written; ms of the vote pass, the fine edges and the PGO.
+15. multiseq — ``MultiSeqPipeline`` at full width on a one-device mesh:
+              four drives of the street (16 frames, one cut to 12),
+              stepped in turn on one stream.  Each sequence must
+              equal an ``OdometryPipeline`` run of it alone (the
+              multi-sequence config, seed ``cfg.seed + s``) bit for bit,
+              register >= 90 % of its frames after the first with code 1,
+              and launch ``nn_grouped``, ``moments`` and ``pca_moments``.
+              Then the aggregate frames/s at S = 1, 4 and 8 (the drives
+              repeated, read back as KITTI .bin through the native
+              reader), timed after a 4-frame warm-up segment with a sync
+              at the end of each segment, with the kernel launches per
+              sequence-frame; at S = 8 the device's busy share over one
+              more steady segment (torch.profiler: the union of the
+              kernels' intervals over the unprofiled segment time) and
+              its device operations per sequence-frame; then S = 8 over
+              4 processes sharing the card (a gloo group) on the same
+              reader, so that the processes are the one change.
+16. fleet   — the native IO library built from the port's source (the
+              phase fails if it does not build);
+              ``apps.slam_multiseq.main`` over two folders of 8 street
+              frames as KITTI .bin: exit 0, the pose files and
+              ``summary.json``; ``format_transform bin2pcd`` on one frame,
+              read back exactly; the native and numpy readers equal on the
+              .bin and the .pcd; a 2-rank process group on the one card
+              (gloo: NCCL refuses two ranks on one device) running
+              ``optimize_pose_graph_sharded`` on tests/test_multiseq.py's
+              9-node ring: equal on both ranks, within 1e-3 m of the
+              one-process ``optimize_pose_graph``; ``distributed_slam_step``
+              over 4 full-width pairs of the main phase's frames on a one-
+              and a four-entry mesh of the card: transforms bit-equal to
+              four single ``mm_lls_icp`` calls, node updates within 1e-4.
 
-The order of the run: 1-5, 11, 6, 7, 12, 13, 8, 9, 10, 14: the phases
+The order of the run: 1-5, 11, 6, 7, 12, 13, 8, 9, 10, 14, 15, 16: the phases
 that read torch.profiler (3, 4, 7, 11, 13) come first.  Its traces have
 lost device events, in the kernel and probe phases of some runs and
 after the threaded SLAM runs of others, for a reason not known.  A timing
@@ -166,7 +197,9 @@ import json
 import math
 import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2247,6 +2280,496 @@ def merge_phase(world: np.ndarray, dev, out_dir: str) -> dict:
             "launches": launches, "events": rec["events"]}
 
 
+# --------------------------------------------------------------------------
+# phase 15: multi-sequence odometry on one card
+# --------------------------------------------------------------------------
+
+MULTISEQ_FRAMES = 16  # a drive
+MULTISEQ_SHORT = 12  # the last drive of the check, cut to exercise the end
+# the rate runs: segments of 2 frames, 4 frames of warm-up, 8 timed
+MULTISEQ_SEGMENT, MULTISEQ_WARM, MULTISEQ_TIMED = 2, 4, 8
+# (x0, y0, heading deg, deg/frame): four drives along the street, 1 m/frame
+MULTISEQ_DRIVES = ((-60.0, 0.0, 0.0, 0.3), (50.0, 2.0, 180.0, -0.3),
+                   (-20.0, -3.0, 2.0, 0.0), (20.0, 3.0, 182.0, 0.2))
+
+
+def multiseq_drive(x0: float, y0: float, yaw_deg: float, turn_deg: float,
+                   n: int) -> np.ndarray:
+    poses = []
+    x, y, yaw = x0, y0, math.radians(yaw_deg)
+    for _ in range(n):
+        T = rot_z(math.degrees(yaw))
+        T[:2, 3] = [x, y]
+        poses.append(T)
+        x += math.cos(yaw)
+        y += math.sin(yaw)
+        yaw += math.radians(turn_deg)
+    return np.stack(poses)
+
+
+MULTISEQ_RANKS = 4  # processes sharing the card for the process-parallel rate
+MULTISEQ_RATE_S = 8  # the sequences of the process-parallel rate
+
+
+def multiseq_rank(rank: int, world: int, init: str, folders: list, cfg,
+                  device: str, out: str) -> None:
+    """One rank (a spawned process) of the process-parallel rate: its
+    block of MULTISEQ_RATE_S sequences, read from .bin folders through the
+    native reader (the warm-up and timed frames), through
+    ``MultiSeqPipeline`` on the shared card; every segment ends at a
+    barrier of all ranks, so rank 0's clock brackets the timed window of
+    all."""
+    import torch.distributed as tdist
+
+    from mulls_tpu_torch.io import native
+    from mulls_tpu_torch.io.dataset import FolderDataset
+    from mulls_tpu_torch.parallel import distributed as dist
+    from mulls_tpu_torch.parallel.multiseq import MultiSeqPipeline
+
+    if not native.native_available():
+        raise AssertionError("the native reader does not load in the rank")
+    dist.initialize_from_env(init, world, rank, backend="gloo")
+    rec = {"describe": dist.describe()}
+    try:
+        mesh = dist.global_mesh(device=device)
+        marks = {}
+
+        def hook(k):
+            tdist.barrier()
+            marks[k] = time.perf_counter()
+
+        end = MULTISEQ_WARM + MULTISEQ_TIMED
+        ds = [FolderDataset(folders[s % len(folders)], cfg.shapes.n_raw,
+                            end=end) for s in range(MULTISEQ_RATE_S)]
+        MultiSeqPipeline(cfg, mesh, segment=MULTISEQ_SEGMENT).run(
+            ds, on_segment=hook)
+        rec["seconds"] = marks[end] - marks[MULTISEQ_WARM]
+    finally:
+        tdist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def spawn(target, args_of_rank, world: int, timeout: float) -> None:
+    """``world`` processes started with ``spawn``, each ``target(*args)``;
+    fails unless every one exits 0 within ``timeout`` seconds."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of_rank(r))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.perf_counter()))
+    stuck = [p for p in procs if p.is_alive()]
+    for p in stuck:
+        p.kill()
+        p.join()
+    if stuck or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"the {world}-rank group failed: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+
+
+def busy_share(prof, seq_frames: int, profiled_ms: float,
+               fps_aggregate: float):
+    """The device's busy time over a profiled segment of ``seq_frames``
+    sequence-frames (the union of its kernels' intervals), over the time
+    the segment takes at the unprofiled rate."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print("[multiseq] device busy share at S = 8 not measured: the "
+              "profiler recorded no device activity", flush=True)
+        return None
+    spans = [(e.time_range.start, e.time_range.end) for e in kern]
+    busy = union_ms(spans)
+    summed = sum(b - a for a, b in spans) / 1e3
+    unprofiled_ms = 1e3 * seq_frames / fps_aggregate
+    print(f"[multiseq] S = 8, one steady segment under torch.profiler "
+          f"({seq_frames} sequence-frames): device busy {busy:.2f} ms (the "
+          f"union of its kernels; {summed:.2f} ms summed) "
+          f"in {unprofiled_ms:.2f} ms at the unprofiled rate "
+          f"({profiled_ms:.2f} ms profiled): busy "
+          f"{100.0 * busy / unprofiled_ms:.1f} %; "
+          f"{len(kern) / seq_frames:.0f} device operations per "
+          f"sequence-frame", flush=True)
+    return {"busy_ms": busy, "kernel_ms_summed": summed,
+            "profiled_window_ms": profiled_ms,
+            "unprofiled_window_ms": unprofiled_ms,
+            "busy_share": busy / unprofiled_ms,
+            "device_ops_per_sequence_frame": len(kern) / seq_frames}
+
+
+def union_ms(intervals: list) -> float:
+    """Length of the union of (start, end) intervals (us), in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def multiseq_phase(world: np.ndarray, dev) -> dict:
+    """``MultiSeqPipeline`` at full width on a one-device mesh: four drives
+    of the street (one cut to 12 frames), each sequence against an
+    ``OdometryPipeline`` run of it alone with the multi-sequence config
+    and seed ``cfg.seed + s``: the same codes and poses bit for bit.
+    Then the aggregate frames/s at S = 1, 4 and 8 (the four drives,
+    repeated, written as KITTI .bin and read through the native reader),
+    timed over 8 frames after 4 of warm-up with a sync at the end of each
+    2-frame segment, and the device's busy share at S = 8 over one more
+    segment under torch.profiler; then S = 8 over MULTISEQ_RANKS
+    processes sharing the card on the same reader."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.io import native
+    from mulls_tpu_torch.io.dataset import FolderDataset
+    from mulls_tpu_torch.parallel.mesh import make_mesh
+    from mulls_tpu_torch.parallel.multiseq import MultiSeqPipeline
+    from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
+
+    cfg = MullsConfig()
+    rng = np.random.default_rng(SEED + 15)
+    drives = [multiseq_drive(*d, MULTISEQ_FRAMES) for d in MULTISEQ_DRIVES]
+    pool = [[render_scan(world, T, cfg.shapes.n_raw, rng) for T in g]
+            for g in drives]
+    check = pool[:3] + [pool[3][:MULTISEQ_SHORT]]
+    mesh = make_mesh(1, device=dev)
+    pipe = MultiSeqPipeline(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.run(check)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"frames": [len(c) for c in check], "seconds": wall,
+           "launches": pipe.launches, "sequences": []}
+    print(f"[multiseq] {len(check)} sequences ({out['frames']} frames) on "
+          f"{[str(d) for d in mesh.devices]} in {wall:.2f} s: "
+          f"{sum(out['frames']) / wall:.2f} frames/s aggregate, the first "
+          f"frames included", flush=True)
+    for s, r in enumerate(res):
+        alone = OdometryPipeline(pipe.cfg.replace(seed=cfg.seed + s),
+                                 device=dev).run(check[s])
+        same = (alone.codes == r.codes
+                and np.array_equal(alone.poses, r.poses))
+        rel = lambda p: np.linalg.inv(p[:-1]) @ p[1:]
+        d = rel(alone.poses) - rel(r.poses)
+        gt = np.linalg.inv(drives[s][0]) @ drives[s][:len(check[s])]
+        end = float(np.linalg.norm(r.poses[-1, :3, 3] - gt[-1, :3, 3]))
+        ok = sum(1 for c in r.codes[1:] if c == 1)
+        rec = {"frames": len(r.poses), "codes": r.codes, "ok_after_first":
+               ok, "equal_alone": same,
+               "max_rel_dt_m": float(np.abs(d[:, :3, 3]).max()),
+               "max_rel_dR": float(np.abs(d[:, :3, :3]).max()),
+               "end_err_m": end, "launches": pipe.launches[s]}
+        out["sequences"].append(rec)
+        print(f"[multiseq] sequence {s}: {rec['frames']} frames, codes "
+              f"{r.codes}; end error {end:.4f} m; alone: "
+              f"{'the same codes and poses bit for bit' if same else 'differs'}"
+              f" (T_rel max |d| {rec['max_rel_dt_m']:.3g} m, "
+              f"{rec['max_rel_dR']:.3g}); launches {pipe.launches[s]}",
+              flush=True)
+
+    # the rates: the drives written as KITTI .bin and read back through
+    # the native reader, as a fleet run reads its logs; S = 1, 4 and 8 in
+    # this process, then S = 8 over MULTISEQ_RANKS processes sharing the
+    # card (gloo): the same reader on both sides of the processes' change
+    native.build_library()  # raises: the phase fails
+    if not native.native_available():
+        raise AssertionError("the native IO library built but did not load")
+    rates = {}
+    steady_end = MULTISEQ_WARM + MULTISEQ_TIMED
+    tmp = tempfile.mkdtemp(prefix="multiseq_")
+    try:
+        folders = []
+        for s, seq in enumerate(pool):
+            folders.append(os.path.join(tmp, f"drive{s}"))
+            os.makedirs(folders[-1])
+            for k, f in enumerate(seq[:steady_end + MULTISEQ_SEGMENT]):
+                _write_bin(os.path.join(folders[-1], f"{k:06d}.bin"), f)
+        for S in (1, 4, 8):
+            # at S = 8 one more segment, under the profiler: the device
+            prof = (profile(activities=[ProfilerActivity.CUDA
+                                        if dev.type == "cuda"
+                                        else ProfilerActivity.CPU])
+                    if S == 8 else None)
+            n = steady_end + (MULTISEQ_SEGMENT if prof is not None else 0)
+            marks = {}
+
+            def hook(k):
+                marks[k] = time.perf_counter()
+                if prof is not None and k == steady_end:
+                    prof.start()
+                elif prof is not None and k == n:
+                    prof.stop()
+                    marks["profiled"] = time.perf_counter()
+
+            p = MultiSeqPipeline(cfg, mesh, segment=MULTISEQ_SEGMENT)
+            p.run([FolderDataset(folders[s % len(folders)], cfg.shapes.n_raw,
+                                 end=n) for s in range(S)], on_segment=hook)
+            steady = S * MULTISEQ_TIMED
+            secs = marks[steady_end] - marks[MULTISEQ_WARM]
+            per_seq_frame = {k: sum(x[k] for x in p.launches) / (S * n)
+                             for k in p.launches[0]}
+            rates[str(S)] = {"fps_aggregate": steady / secs,
+                             "steady_frames": steady, "seconds": secs,
+                             "launches_per_sequence_frame": per_seq_frame}
+            print(f"[multiseq] S = {S}, one process: {steady} steady frames "
+                  f"in {secs:.3f} s after {MULTISEQ_WARM} warm-up frames: "
+                  f"{steady / secs:.3f} frames/s aggregate "
+                  f"({steady / secs / S:.3f} per sequence); kernel launches "
+                  f"per sequence-frame "
+                  + ", ".join(f"{k} {v:.2f}"
+                              for k, v in per_seq_frame.items() if v),
+                  flush=True)
+        out["busy"] = busy_share(
+            prof, S * MULTISEQ_SEGMENT,
+            1e3 * (marks["profiled"] - marks[steady_end]),
+            rates["8"]["fps_aggregate"])
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        outs = [os.path.join(tmp, f"rank{r}.json")
+                for r in range(MULTISEQ_RANKS)]
+        spawn(multiseq_rank,
+              lambda r: (r, MULTISEQ_RANKS, init, folders, cfg, dev.type,
+                         outs[r]), MULTISEQ_RANKS, 600.0)
+        with open(outs[0]) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    S = MULTISEQ_RATE_S
+    steady = S * MULTISEQ_TIMED
+    key = f"{S}_over_{MULTISEQ_RANKS}_processes"
+    fps = steady / rec["seconds"]
+    rates[key] = {"fps_aggregate": fps, "steady_frames": steady,
+                  "seconds": rec["seconds"],
+                  "vs_one_process": fps / rates[str(S)]["fps_aggregate"]}
+    for k in rates:
+        rates[k]["speedup_vs_1"] = (rates[k]["fps_aggregate"]
+                                    / rates["1"]["fps_aggregate"])
+    print(f"[multiseq] S = {S} over {MULTISEQ_RANKS} processes on the card "
+          f"({rec['describe']}, ...): {steady} steady frames in "
+          f"{rec['seconds']:.3f} s: {fps:.3f} frames/s aggregate, "
+          f"x{rates[key]['vs_one_process']:.3f} the one-process rate at "
+          f"S = {S} on the same reader", flush=True)
+    out["rates"] = rates
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 16: the fleet CLI, the native reader, format_transform, two ranks
+# --------------------------------------------------------------------------
+
+FLEET_FRAMES = 8
+
+
+def _write_bin(path: str, f: dict) -> None:
+    m = f["mask"]
+    np.concatenate([f["xyz"][m], f["intensity"][m, None] / 255.0],
+                   1).astype(np.float32).tofile(path)
+
+
+def _spawn_ranks(out_dir: str, device: str, world: int = 2,
+                 timeout: float = 240.0) -> list:
+    """``world`` processes (spawn) in a gloo group on ``device`` (the
+    card), each running ``parallel/ring_check.py``'s sharded PGO on the
+    ring."""
+    from mulls_tpu_torch.parallel.ring_check import sharded_rank
+    init = "file://" + os.path.join(out_dir, "rendezvous")
+    outs = [os.path.join(out_dir, f"rank{r}.json") for r in range(world)]
+    spawn(sharded_rank, lambda r: (r, world, init, outs[r], device), world,
+          timeout)
+    recs = []
+    for o in outs:
+        with open(o) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def fleet_phase(frames: list, gt: np.ndarray, dev, out_dir: str) -> dict:
+    """The fleet CLI (``apps.slam_multiseq.main``) over two folders of 8
+    street frames as KITTI .bin through the native reader (built here;
+    the phase fails if it does not build); ``format_transform bin2pcd``
+    on one frame, read back; native and numpy readers on the .bin and
+    the .pcd; a 2-rank gloo group on the card running
+    ``optimize_pose_graph_sharded`` on tests/test_multiseq.py's 9-node
+    ring; ``distributed_slam_step`` over 4 full-width pairs of the main
+    phase's frames on a one-entry and a four-entry mesh of the card."""
+    import dataclasses
+
+    import torch
+    from mulls_tpu_torch.apps import format_transform, slam_multiseq
+    from mulls_tpu_torch.backend.pgo import optimize_pose_graph
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.core.cloud import FeatureCloud, RawCloud
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.frontend.features import extract_features
+    from mulls_tpu_torch.frontend.icp import mm_lls_icp
+    from mulls_tpu_torch.io import native
+    from mulls_tpu_torch.io.dataset import pad_cloud, read_point_cloud
+    from mulls_tpu_torch.io.pcd import read_pcd
+    from mulls_tpu_torch.parallel.mesh import (Mesh, distributed_slam_step,
+                                               make_mesh)
+    from mulls_tpu_torch.parallel.ring_check import ring_graph, torch_graph
+
+    out = {}
+    t0 = time.perf_counter()
+    info = native.build_library()  # raises: the phase fails
+    if not native.native_available():
+        raise AssertionError("the native IO library built but did not load")
+    out["native_build_s"] = time.perf_counter() - t0
+    print(f"[fleet] native IO library {'built' if info['built'] else 'found'}"
+          f" in {out['native_build_s']:.2f} s: {info['path']}", flush=True)
+
+    folders = []
+    for name, part in (("seq_a", frames[:FLEET_FRAMES]),
+                       ("seq_b", frames[FLEET_FRAMES:2 * FLEET_FRAMES])):
+        d = os.path.join(out_dir, "fleet", name)
+        os.makedirs(d, exist_ok=True)
+        for k, f in enumerate(part):
+            _write_bin(os.path.join(d, f"{k:06d}.bin"), f)
+        folders.append(d)
+    res_dir = os.path.join(out_dir, "fleet_out")
+    t0 = time.perf_counter()
+    rc = slam_multiseq.main(["--sequence_folders", ",".join(folders),
+                             "--output_dir", res_dir, "--segment", "4",
+                             "--device", dev.type])
+    out["cli_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the fleet CLI exited {rc}")
+    with open(os.path.join(res_dir, "summary.json")) as f:
+        summary = json.load(f)
+    for name in ("seq_a", "seq_b"):
+        poses = np.loadtxt(os.path.join(res_dir, f"{name}_pose.txt"))
+        if poses.shape != (FLEET_FRAMES, 12):
+            raise AssertionError(f"{name}_pose.txt holds {poses.shape}")
+        if summary["sequences"][name]["ok_frames"] < FLEET_FRAMES - 1:
+            raise AssertionError(f"{name}: {summary['sequences'][name]}")
+    out["summary"] = summary
+    print(f"[fleet] slam_multiseq over 2 folders of {FLEET_FRAMES} .bin "
+          f"frames: exit 0 in {out['cli_s']:.1f} s, fps_aggregate "
+          f"{summary['fps_aggregate']:.3f} (the first frames included), "
+          f"{summary['sequences']}", flush=True)
+
+    # format_transform, and the two readers on the .bin and the .pcd
+    src = os.path.join(folders[0], "000000.bin")
+    pcd = os.path.join(out_dir, "fleet", "000000.pcd")
+    if format_transform.main(["bin2pcd", src, pcd]) != 0:
+        raise AssertionError("format_transform bin2pcd failed")
+    raw = np.fromfile(src, np.float32).reshape(-1, 4)
+    back = read_pcd(pcd)
+    # the .pcd stores float32: the points and the KITTI reader's x255
+    # intensities come back exactly
+    if not (np.array_equal(back["xyz"], raw[:, :3]) and np.array_equal(
+            back["intensity"], raw[:, 3] * np.float32(255))):
+        raise AssertionError("bin2pcd's file does not read back as the .bin")
+    n_raw = MullsConfig().shapes.n_raw
+    for path in (src, pcd):
+        a = native.read_cloud_native(path, n_raw)
+        b = pad_cloud(read_point_cloud(path), n_raw)
+        if not all(np.array_equal(a[k], b[k]) for k in b):
+            raise AssertionError(f"native and numpy readers differ on {path}")
+    print(f"[fleet] bin2pcd: {len(raw)} points read back exactly; native "
+          f"and numpy readers give equal padded clouds on the .bin and the "
+          f".pcd", flush=True)
+
+    # two ranks on one card: gloo (NCCL refuses two ranks on one device)
+    g = ring_graph()
+    t0 = time.perf_counter()
+    recs = _spawn_ranks(os.path.join(out_dir, "fleet"), dev.type)
+    out["ranks_s"] = time.perf_counter() - t0
+    t1, _, _ = optimize_pose_graph(torch_graph(g, dev), iterations=15)
+    t1 = t1.cpu().numpy()
+    ring = []
+    for r, rec in enumerate(recs):
+        err = float(np.abs(np.float32(rec["t"]) - t1).max())
+        ring.append({"describe": rec["describe"], "max_dt_m": err,
+                     "slice": rec["slice"], "whole": rec["whole"]})
+        if not err <= 1e-3:
+            raise AssertionError(f"rank {r}'s sharded PGO is {err} m from "
+                                 f"optimize_pose_graph")
+    if recs[0]["t"] != recs[1]["t"]:
+        raise AssertionError("the two ranks' sharded PGO results differ")
+    out["ranks"] = ring
+    print(f"[fleet] 2 ranks on one {dev.type} device "
+          f"({recs[0]['describe']}; {recs[1]['describe']}), "
+          f"{out['ranks_s']:.1f} s with the processes' start: "
+          f"optimize_pose_graph_sharded on the 9-node ring equal on both "
+          f"ranks, {ring[0]['max_dt_m']:.3g} m from the one-process "
+          f"optimize_pose_graph; process_slice(10) "
+          f"{[x['slice'] for x in ring]}", flush=True)
+
+    # distributed_slam_step over 4 full-width pairs (k + 1 onto k)
+    cfg = MullsConfig()
+    feats = [extract_features(RawCloud.from_numpy(frames[k], dev), cfg,
+                              GeneratorDraws(SEED + k, dev)).down
+             for k in range(5)]
+    fields = [f.name for f in dataclasses.fields(FeatureCloud)]
+
+    def stack(cl):
+        return {c: FeatureCloud(**{f: torch.stack([getattr(x[c], f)
+                                                   for x in cl])
+                                   for f in fields}) for c in cl[0]}
+
+    guess = torch.eye(4, device=dev)
+    guess[0, 3] = 1.0  # the street's 1 m/frame
+    guesses = guess.expand(4, 4, 4).contiguous()
+    e_i = torch.arange(4, device=dev)
+    m = 5
+    node_t = torch.zeros((m, 3), device=dev)
+    node_q = torch.zeros((m, 4), device=dev)
+    node_q[:, 0] = 1.0
+    it = cfg.reg.reg_max_iter_num_s2m
+    single = [mm_lls_icp(feats[k + 1], feats[k], cfg.reg, guesses[k], it)
+              for k in range(4)]
+    T1 = torch.stack([r.transform for r in single])
+    steps = {}
+    for name, mesh in (("one entry", make_mesh(1, device=dev)),
+                       ("four entries", Mesh((dev,) * 4))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nt, nq, T, sig = distributed_slam_step(mesh, cfg.reg, it, m)(
+            stack(feats[1:]), stack(feats[:4]), guesses, e_i, e_i + 1,
+            node_t, node_q)
+        torch.cuda.synchronize()
+        steps[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                       "T_equal": bool(torch.equal(T, T1)),
+                       "t": nt.cpu().numpy(), "q": nq.cpu().numpy()}
+    d_node = max(float(np.abs(steps["one entry"][k]
+                              - steps["four entries"][k]).max())
+                 for k in ("t", "q"))
+    rel_gt = [np.linalg.inv(gt[k]) @ gt[k + 1] for k in range(4)]
+    err = [float(np.linalg.norm(T1[k].cpu().numpy()[:3, 3]
+                                - rel_gt[k][:3, 3])) for k in range(4)]
+    out["step"] = {"codes": [int(r.process_code) for r in single],
+                   "T_err_m": err, "node_diff": d_node,
+                   **{f"{k}_ms": v["ms"] for k, v in steps.items()},
+                   **{f"{k}_T_equal": v["T_equal"]
+                      for k, v in steps.items()}}
+    equal = all(v["T_equal"] for v in steps.values())
+    times = ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in steps.items())
+    print(f"[fleet] distributed_slam_step over 4 full-width pairs: codes "
+          f"{out['step']['codes']}, transforms "
+          f"{'bit-equal' if equal else 'NOT equal'} to four single "
+          f"mm_lls_icp calls on one and on four mesh entries ({times}); "
+          f"the node update differs by {d_node:.3g} between the two; "
+          f"pair errors against the truth {[round(e, 4) for e in err]} m",
+          flush=True)
+    if not equal:
+        raise AssertionError("the step's transforms differ from single "
+                             "mm_lls_icp calls")
+    if not d_node <= 1e-4:
+        raise AssertionError(f"node updates of the one- and four-entry "
+                             f"meshes differ by {d_node}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -2327,7 +2850,6 @@ def main() -> int:
     agree = agree_phase(dev, SEED)
     prof = profile_phase(frames, MullsConfig(), dev)
     # --- phase 12: the CLI, SLAM under its own trace
-    import tempfile
     tmp_dir = tempfile.TemporaryDirectory()
     try:
         cli = cli_phase(frames, tmp_dir.name)
@@ -2354,6 +2876,15 @@ def main() -> int:
         t0 = time.perf_counter()
         merge = merge_phase(world, dev, tmp_dir.name)
         print(f"[merge] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        # --- phase 15: multi-sequence odometry; phase 16: the fleet CLI,
+        # the native reader, format_transform and two ranks on the card
+        t0 = time.perf_counter()
+        multiseq = multiseq_phase(world, dev)
+        print(f"[multiseq] phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        fleet = fleet_phase(frames, gt, dev, tmp_dir.name)
+        print(f"[fleet] phase {time.perf_counter() - t0:.1f} s", flush=True)
     except AssertionError as e:
         return fail(f"slice check: {e}")
     finally:
@@ -2413,10 +2944,13 @@ def main() -> int:
                 "candidate_pairs", "brute_force_bound_ms", "launches",
                 "filter_call")})
         kernels_line.append(e)
-    # the launches of the reg CLI (all six modes) and of the merge CLI
+    # the launches of the reg CLI (all six modes), of the merge CLI and of
+    # the multi-sequence check's sequences (phase 15, summed)
     for e in kernels_line:
         e["reg_launches"] = reg["launches"].get(e["name"], 0)
         e["merge_launches"] = merge["launches"].get(e["name"], 0)
+        e["multiseq_launches"] = sum(x.get(e["name"], 0)
+                                     for x in multiseq["launches"])
     # device times that came from traces which lost events (device_ms took
     # the mean of the launches they kept), listed on each kernel's row
     from mulls_tpu_torch.tools.roofline import PARTIAL_TRACES
@@ -2521,6 +3055,21 @@ def main() -> int:
                         f"{agree_slam['pose_dt_m']} m / "
                         f"{agree_slam['pose_dr_deg']} deg")
 
+    # multi-sequence odometry: each sequence as its run alone, healthy,
+    # and its own launches of the front end's kernels
+    for s, rec in enumerate(multiseq["sequences"]):
+        if not rec["equal_alone"]:
+            problems.append(f"multiseq sequence {s} differs from its run "
+                            f"alone (T_rel max |d| {rec['max_rel_dt_m']} m)")
+        if rec["ok_after_first"] < 0.9 * (rec["frames"] - 1):
+            problems.append(f"multiseq sequence {s}: codes {rec['codes']}")
+        for name in ("nn_grouped", "moments", "pca_moments"):
+            if rec["launches"][name] <= 0:
+                problems.append(f"multiseq sequence {s} launched no {name}")
+    if [r["frames"] for r in multiseq["sequences"]] != multiseq["frames"]:
+        problems.append("multiseq results are not truncated to each "
+                        "sequence's length")
+
     if args.out:
         slam_rec = {k: v for k, v in slam.items()
                     if k not in ("backend", "cfg", "poses")}
@@ -2532,6 +3081,7 @@ def main() -> int:
                        "m2m_nn": m2m, "agree_slam": agree_slam,
                        "assembly": assembly, "baseline": baseline,
                        "cli": cli, "reg": reg, "merge": merge,
+                       "multiseq": multiseq, "fleet": fleet,
                        "main_repeat_end_err_m":
                        again["end_err_m"]}, f, indent=1, default=float)
     if problems:

@@ -187,6 +187,30 @@ def _accept(state, t_new, q_new, new_cost):
             torch.where(accept, new_cost, best_cost))
 
 
+def _normal_equations(node_t, node_q, graph: PoseGraph, sqrt_info,
+                      robust_kernel: bool, huber_delta: float):
+    """(H [M, 6, M, 6], g [M, 6]) of the graph's (masked, whitened,
+    optionally Huber-weighted) edges at the given poses."""
+    m = node_t.shape[0]
+    ii, jj = graph.edge_i, graph.edge_j
+    r, Ja, Jb = _edge_res_and_jac(node_t, node_q, graph)
+    rW, JaW, JbW = _weighted(r, Ja, Jb, sqrt_info, graph.edge_mask,
+                             robust_kernel, huber_delta)
+    # dense H (6M x 6M): the 6x6 blocks summed into block (i, j), one
+    # segment id i * M + j each, in a fixed order
+    Haa = torch.einsum("eki,ekj->eij", JaW, JaW)
+    Hbb = torch.einsum("eki,ekj->eij", JbW, JbW)
+    Hab = torch.einsum("eki,ekj->eij", JaW, JbW)
+    H = segment_sum(
+        torch.cat([Haa, Hbb, Hab, Hab.transpose(-1, -2)]),
+        torch.cat([ii * m + ii, jj * m + jj, ii * m + jj, jj * m + ii]),
+        m * m).reshape(m, m, 6, 6)
+    g = segment_sum(torch.cat([torch.einsum("eki,ek->ei", JaW, rW),
+                               torch.einsum("eki,ek->ei", JbW, rW)]),
+                    torch.cat([ii, jj]), m)
+    return H.permute(0, 2, 1, 3), g
+
+
 def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
                         lm_lambda: float = 1e-4, equal_weight: bool = False,
                         diagonal_information: bool = False,
@@ -204,7 +228,6 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
         info = torch.eye(6, dtype=f32, device=dev) \
             * torch.diagonal(info, dim1=-2, dim2=-1)[..., None, :]
     sqrt_info = _sqrt_psd(info)
-    ii, jj = graph.edge_i, graph.edge_j
     eye = torch.eye(m * 6, dtype=f32, device=dev)
     pin = torch.repeat_interleave(
         torch.where(graph.fixed, 1e10, 0.0).to(f32), 6)
@@ -218,24 +241,11 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
              cost_at(graph.node_t, graph.node_q))
     for _ in range(iterations):
         node_t, node_q, lam, _ = state
-        r, Ja, Jb = _edge_res_and_jac(node_t, node_q, graph)
-        rW, JaW, JbW = _weighted(r, Ja, Jb, sqrt_info, graph.edge_mask,
+        H, g = _normal_equations(node_t, node_q, graph, sqrt_info,
                                  robust_kernel, huber_delta)
-        # dense H (6M x 6M): the 6x6 blocks summed into block (i, j), one
-        # segment id i * M + j each, in a fixed order
-        Haa = torch.einsum("eki,ekj->eij", JaW, JaW)
-        Hbb = torch.einsum("eki,ekj->eij", JbW, JbW)
-        Hab = torch.einsum("eki,ekj->eij", JaW, JbW)
-        H = segment_sum(
-            torch.cat([Haa, Hbb, Hab, Hab.transpose(-1, -2)]),
-            torch.cat([ii * m + ii, jj * m + jj, ii * m + jj, jj * m + ii]),
-            m * m).reshape(m, m, 6, 6)
-        g = segment_sum(torch.cat([torch.einsum("eki,ek->ei", JaW, rW),
-                                   torch.einsum("eki,ek->ei", JbW, rW)]),
-                        torch.cat([ii, jj]), m)
         # freeze nodes + LM damping (+1e-8 keeps unconstrained nodes
         # solvable)
-        Hd = H.permute(0, 2, 1, 3).reshape(m * 6, m * 6) + torch.diag(pin) \
+        Hd = H.reshape(m * 6, m * 6) + torch.diag(pin) \
             + lam * eye + 1e-8 * eye
         delta = torch.linalg.solve_ex(Hd, -g.reshape(-1))[0].reshape(m, 6)
         delta = torch.where(graph.fixed[:, None], 0.0, delta)
@@ -246,6 +256,75 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 20,
     rW = torch.einsum("eij,ej->ei", sqrt_info, _residuals(t, q, graph)) \
         * graph.edge_mask.to(f32)[:, None]
     return t, q, torch.sum(rW * rW)
+
+
+def optimize_pose_graph_sharded(graph: PoseGraph, mesh,
+                                iterations: int = 20,
+                                lm_lambda: float = 1e-4, axis: str = "data",
+                                robust_kernel: bool = False,
+                                huber_delta: float = 1.0):
+    """Multi-device PGO (``parallel/mesh.py::Mesh``): the EDGES go to the
+    mesh's entries in contiguous blocks (the edge count a multiple of the
+    mesh size: pad with ``edge_mask``), each entry builds the Hessian /
+    gradient / cost of its edges on its device, and the reduced 6M x 6M
+    system is solved replicated.  ``Mesh.reduce_sum`` stands for the
+    reference's three ``psum``s (`mulls_tpu/backend/pgo.py:460,489-490,
+    522`): local entries in order, then ``all_reduce`` across ranks, so
+    every rank sees the same reduced cost and makes the same LM accept /
+    reject decision.  Huber kernel and adaptive damping as the local
+    solver.  Returns (node_t, node_q, chi2) on ``mesh.devices[0]``."""
+    if axis != mesh.axis_name:
+        raise ValueError(f"axis {axis!r} is not the mesh's "
+                         f"{mesh.axis_name!r}")
+    m = graph.num_nodes
+    dev = mesh.devices[0]
+    graph = PoseGraph(*[None if x is None else x.to(dev) for x in graph])
+    sqrt_info = _sqrt_psd(graph.edge_info)
+    # one graph per local entry: its block of edges on its device
+    shards = []
+    for d, (lo, hi) in zip(mesh.devices, mesh.blocks(
+            graph.edge_i.shape[0])):
+        blk = graph._replace(
+            edge_i=graph.edge_i[lo:hi], edge_j=graph.edge_j[lo:hi],
+            edge_t=graph.edge_t[lo:hi], edge_q=graph.edge_q[lo:hi],
+            edge_info=graph.edge_info[lo:hi],
+            edge_mask=graph.edge_mask[lo:hi])
+        shards.append((d, PoseGraph(*[None if x is None else x.to(d)
+                                      for x in blk]),
+                       sqrt_info[lo:hi].to(d)))
+    eye = torch.eye(m * 6, dtype=f32, device=dev)
+    pin = torch.repeat_interleave(
+        torch.where(graph.fixed, 1e10, 0.0).to(f32), 6)
+
+    def cost_at(t, q):
+        return mesh.reduce_sum([_huber_cost(
+            _residuals(t.to(d), q.to(d), g), s, g.edge_mask, robust_kernel,
+            huber_delta) for d, g, s in shards])
+
+    state = (graph.node_t, graph.node_q,
+             torch.tensor(lm_lambda, dtype=f32, device=dev),
+             cost_at(graph.node_t, graph.node_q))
+    for _ in range(iterations):
+        t, q, lam, _ = state
+        parts = [_normal_equations(t.to(d), q.to(d), g, s, robust_kernel,
+                                   huber_delta) for d, g, s in shards]
+        # the collective: the partial normal equations reduced over the
+        # mesh
+        H = mesh.reduce_sum([h for h, _ in parts])
+        g = mesh.reduce_sum([gg for _, gg in parts])
+        Hd = H.reshape(m * 6, m * 6) + torch.diag(pin) + (lam + 1e-8) * eye
+        delta = torch.linalg.solve_ex(Hd, -g.reshape(-1))[0].reshape(m, 6)
+        delta = torch.where(graph.fixed[:, None], 0.0, delta)
+        t_new, q_new = _lm_update(t, q, delta, graph)
+        state = _accept(state, t_new, q_new, cost_at(t_new, q_new))
+    t, q = state[0], state[1]
+    # final chi2 at the returned poses
+    chi2 = []
+    for d, g, s in shards:
+        rW = torch.einsum("eij,ej->ei", s, _residuals(t.to(d), q.to(d), g)) \
+            * g.edge_mask.to(f32)[:, None]
+        chi2.append(torch.sum(rW * rW))
+    return t, q, mesh.reduce_sum(chi2)
 
 
 def _cg(Av, Mv, b, maxiter: int, tol: float):

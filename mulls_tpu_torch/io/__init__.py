@@ -1,5 +1,6 @@
-"""Host-side readers and writers (numpy only), copied from the JAX
-package so that the port installs and runs without it."""
+"""Host-side readers and writers, copied from the JAX package so that the
+port installs and runs without it: numpy readers, and the native C++
+reader of ``io/native.py`` (built with g++ at first use)."""
 
 from mulls_tpu_torch.io.pcd import read_pcd, write_pcd
 from mulls_tpu_torch.io.kitti import (

@@ -13,6 +13,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from mulls_tpu_torch.io import native as nio
 from mulls_tpu_torch.io.kitti import read_kitti_bin, read_kitti_labels
 from mulls_tpu_torch.io.pcd import read_pcd, write_pcd
 
@@ -116,27 +117,52 @@ def pad_cloud(data: dict, n_raw: int, rng: Optional[np.random.Generator] = None
 class FolderDataset:
     """Iterates a folder of point-cloud files in sorted order, padded to the
     shape contract.  Mirrors `batch_read_filenames_in_folder` +
-    `read_pc_cloud_block` (`dataio.hpp:875-1086`).  Decoding uses the
-    pure-numpy readers of this package.
+    `read_pc_cloud_block` (`dataio.hpp:875-1086`).
+
+    Decoding uses the native C++ runtime (``io/native.py``) when its
+    library builds and loads, including a worker-pool prefetch ring when
+    iterating and packed segments for the odometry prefetch, and the numpy
+    readers of this package otherwise.  ``native=False`` forces the numpy
+    readers.
     """
 
     def __init__(self, root: str, n_raw: int, ext: Optional[str] = None,
-                 begin: int = 0, end: Optional[int] = None, step: int = 1):
+                 begin: int = 0, end: Optional[int] = None, step: int = 1,
+                 native: bool = True):
         names = sorted(os.listdir(root))
         files = [os.path.join(root, f) for f in names
                  if f.lower().endswith(ext or _EXTS)]
         self.files = files[begin:end:step]
         self.n_raw = n_raw
+        self._native = native and nio.native_available()
 
     def __len__(self) -> int:
         return len(self.files)
 
     def __getitem__(self, i: int) -> dict:
+        if self._native:
+            out = nio.read_cloud_native(self.files[i], self.n_raw)
+            if out is not None:
+                return out
         return pad_cloud(read_point_cloud(self.files[i]), self.n_raw)
 
     def __iter__(self) -> Iterator[dict]:
+        if self._native:
+            # a file the library cannot read raises IOError here, as the
+            # numpy reader raises on it
+            with nio.NativePrefetcher(self.files, self.n_raw) as pf:
+                yield from pf
+            return
         for i in range(len(self)):
             yield self[i]
+
+    def packed_segments(self, segment: int):
+        """Native fast path: segments of frames decoded AND quantized to
+        the wire format by the C++ worker pool
+        (:class:`io.native.PackedSegmentPrefetcher`), or None."""
+        if not self._native:
+            return None
+        return nio.PackedSegmentPrefetcher(self.files, self.n_raw, segment)
 
 
 class SemanticKittiDataset(FolderDataset):
@@ -156,6 +182,14 @@ class SemanticKittiDataset(FolderDataset):
         data = read_point_cloud(self.files[i])
         data["label"] = read_kitti_labels(self.label_files[i])
         return pad_cloud(data, self.n_raw)
+
+    def __iter__(self) -> Iterator[dict]:
+        # labels must ride along: bypass the native (label-less) prefetcher
+        for i in range(len(self)):
+            yield self[i]
+
+    def packed_segments(self, segment: int):
+        return None  # labels must ride along; use the numpy pack path
 
 
 def write_point_cloud(path: str, xyz: np.ndarray,

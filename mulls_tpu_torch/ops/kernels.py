@@ -163,9 +163,18 @@ def build_kernels() -> dict:
             "built": True, "log": log}
 
 
-@functools.lru_cache(maxsize=None)
+_library_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use: once, when several threads
+    ask for it at once (they would share one build directory)."""
+    with _library_lock:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_kernels()["path"])
     vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.mulls_nn_grouped.argtypes = [i, vp, vp, vp, vp, vp]

@@ -35,7 +35,7 @@ from mulls_tpu_torch.core.cloud import (FeatureCloud, FeatureFrame,
                                         pack_raw_host, unpack_raw)
 from mulls_tpu_torch.core.device import resolve_device
 from mulls_tpu_torch.core.draws import Draws, GeneratorDraws
-from mulls_tpu_torch.core.tree import Struct, tree_where
+from mulls_tpu_torch.core.tree import Struct, tree_map, tree_where
 from mulls_tpu_torch.frontend.features import extract_features
 from mulls_tpu_torch.frontend.icp import RegResult, mm_lls_icp
 from mulls_tpu_torch.mapping.local_map import (LocalMap, init_local_map,
@@ -567,14 +567,36 @@ class OdometryResult:
     timings: Optional[np.ndarray] = None  # [N, 4] ms (feat/map/reg/loop)
 
 
+def _frames_of_segment(k: int, batch: dict, with_ts: bool, pin: bool,
+                       device: torch.device):
+    """The first ``k`` frames of a native packed segment
+    (``io/native.py::PackedSegmentPrefetcher``): one upload of the whole
+    batch, then a ``PackedRawCloud`` view per frame."""
+    packed = PackedRawCloud(
+        xyz_q=torch.from_numpy(batch["xyz_q"]),
+        intensity_q=torch.from_numpy(batch["intensity_q"]),
+        ts_q=(torch.from_numpy(batch["ts_q"].astype(np.int32))
+              if with_ts else None),
+        n=torch.from_numpy(batch["n"]))
+    if pin:
+        packed = packed.pin_memory()
+    packed = packed.to(device, non_blocking=pin)
+    return [tree_map(lambda a, j=j: a[j], packed) for j in range(k)]
+
+
 def prefetch_frames(dataset, device: torch.device, depth: int = 4,
-                    with_ts: bool = True):
+                    with_ts: bool = True, segment: int = 16):
     """Threaded host pipeline: read -> pack -> upload, ``depth`` frames
     ahead of the consumer so disk decode and the host-to-device copy
-    overlap device compute.  Yields packed frames on ``device``."""
+    overlap device compute.  Yields packed frames on ``device``.  A dataset
+    with ``packed_segments`` (the native reader of ``io/dataset.py``)
+    hands over ``segment`` frames at a time already packed by its C++
+    workers."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
     pin = device.type == "cuda"
+    native = (dataset.packed_segments(segment)
+              if hasattr(dataset, "packed_segments") else None)
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -587,6 +609,15 @@ def prefetch_frames(dataset, device: torch.device, depth: int = 4,
 
     def worker():
         try:
+            if native is not None:
+                with native:
+                    for k, batch in native:
+                        for frame in _frames_of_segment(k, batch, with_ts,
+                                                        pin, device):
+                            if not put(frame):
+                                return
+                put(None)
+                return
             it = iter(dataset) if hasattr(dataset, "__iter__") \
                 else (dataset[i] for i in range(len(dataset)))
             for frame in it:
@@ -612,6 +643,23 @@ def prefetch_frames(dataset, device: torch.device, depth: int = 4,
     finally:
         stop.set()
         t.join(timeout=5.0)
+
+
+def results_from_vecs(vecs: np.ndarray, timings=None) -> OdometryResult:
+    """The run's poses (each frame's T_rel chained onto the last pose,
+    re-orthonormalized in float64), codes and sigmas from its packed
+    [N, 16] step vectors."""
+    n = vecs.shape[0]
+    T_rels, sig, cod, _, _ = StepOut.unpack_vecs(vecs)
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(1, n):
+        # re-orthonormalize in f64 to keep long compositions clean
+        p = poses[i - 1] @ T_rels[i]
+        u, _, vt = np.linalg.svd(p[:3, :3])
+        p[:3, :3] = u @ vt
+        poses[i] = p
+    return OdometryResult(poses=poses, codes=[int(c) for c in cod],
+                          sigmas=[float(s) for s in sig], timings=timings)
 
 
 class OdometryPipeline:
@@ -655,7 +703,8 @@ class OdometryPipeline:
 
         col = {"feature": 0, "map": 1, "reg": 2}
         for i, raw in enumerate(prefetch_frames(dataset, dev,
-                                                with_ts=ship_ts)):
+                                                with_ts=ship_ts,
+                                                segment=self.segment)):
             state, out = slam_step(state, raw, cfg,
                                    timer=timer if profile else None)
             pending.append(out.vec)
@@ -670,14 +719,4 @@ class OdometryPipeline:
 
         vecs = (np.concatenate(vec_parts) if vec_parts
                 else np.zeros((0, 16), np.float32))
-        T_rels, sig, cod, _, _ = StepOut.unpack_vecs(vecs)
-        poses = np.tile(np.eye(4), (n, 1, 1))
-        for i in range(1, n):
-            # re-orthonormalize in f64 to keep long compositions clean
-            p = poses[i - 1] @ T_rels[i]
-            u, _, vt = np.linalg.svd(p[:3, :3])
-            p[:3, :3] = u @ vt
-            poses[i] = p
-        return OdometryResult(poses=poses, codes=[int(c) for c in cod],
-                              sigmas=[float(s) for s in sig],
-                              timings=timings)
+        return results_from_vecs(vecs, timings)

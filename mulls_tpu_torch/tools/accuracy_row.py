@@ -13,7 +13,7 @@ seed 7 and 420 frames beside the reference's row of
 which this repository does not hold).
 
     python -m mulls_tpu_torch.tools.accuracy_row [--seed 7] [--frames 420]
-        [--device cuda] [--out FILE.json]
+        [--device cuda] [--out FILE.json] [--skip_slam]
 
 Full width on the card takes ~10 minutes (420 frames twice); without a
 card it raises unless ``--device cpu`` is passed, which at this width
@@ -77,7 +77,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--frames", type=int, default=420)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default=None)
+    ap.add_argument("--out", default=None, help="the record (JSON), with "
+                    "the odometry's per-frame poses and codes")
+    ap.add_argument("--skip_slam", action="store_true",
+                    help="odometry only, as the reference bench's flag")
     args = ap.parse_args(argv)
 
     import torch
@@ -115,6 +118,14 @@ def main(argv=None) -> int:
     out["odometry_failed_frames"] = len(bad)
     out["odometry_failed_frame_indices"] = bad[:32]
     out["odometry"] = evaluate(gt, odo.poses)
+    o = out["odometry"]
+    print(f"[accuracy] odometry: drift {o['t_drift_pct']:.4f} % / "
+          f"{o['r_drift_deg_per_m']:.5f} deg/m, end gap {o['end_gap_m']:.4f}"
+          f" m, failed frames {bad}, {out['odometry_fps']:.2f} frames/s",
+          flush=True)
+    if args.skip_slam:
+        _write(args.out, out, odo)
+        return 0
 
     cfg_slam = cfg.replace(submap=dataclasses.replace(
         cfg.submap, loop_closure_detection_on=True))
@@ -153,11 +164,17 @@ def main(argv=None) -> int:
           f"edges' errors {[round(e, 3) for e in out['loop_edge_t_err_m']]}"
           f" m; failed frames {bad}", flush=True)
     print(json.dumps(out), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=2)
+    _write(args.out, out, odo)
     return 0
+
+
+def _write(path, out: dict, odo) -> None:
+    if not path:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({**out, "odometry_codes": odo.codes,
+                   "odometry_poses": odo.poses.tolist()}, f, indent=2)
 
 
 if __name__ == "__main__":

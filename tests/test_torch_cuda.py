@@ -862,9 +862,9 @@ def test_nn_at_the_sac_ia_scoring_shape(dev):
     assert _same_bits(lambda: kernels.nn(q, qm, p, pm))
 
 
-def _reg_scene(seed=91, n_raw=16384):
-    """A target and a source scan 1.55 m / 6 deg apart in a small
-    structured world (ground, a walled street, posts), and the truth."""
+def _street_scene(seed=91, n_raw=16384):
+    """(pose, scan) of a small structured world (ground, a walled street,
+    posts): ``pose(x, y, deg)`` a 4x4, ``scan(T)`` a cloud seen from T."""
     rng = np.random.default_rng(seed)
     n = 90000
     g = np.stack([rng.uniform(-45, 45, n // 2), rng.uniform(-45, 45, n // 2),
@@ -898,6 +898,13 @@ def _reg_scene(seed=91, n_raw=16384):
                 "intensity": np.abs(np.sin(world[sel, 0])).astype(np.float32)
                 * 100.0}
 
+    return pose, scan
+
+
+def _reg_scene(seed=91, n_raw=16384):
+    """A target and a source scan 1.55 m / 6 deg apart in the street scene,
+    and the truth."""
+    pose, scan = _street_scene(seed, n_raw)
     P_t, P_s = pose(0.0, 0.0, 0.0), pose(1.5, 0.4, 6.0)
     return scan(P_t), scan(P_s), np.linalg.inv(P_t) @ P_s
 
@@ -956,3 +963,92 @@ def test_register_pair_on_the_card_agrees_with_the_cpu(dev, coarse):
     assert np.degrees(np.arccos(np.clip((np.trace(M) - 1) / 2, -1, 1))) < 0.2
     assert rec["nn_grouped"] > 0 and rec["pca_moments"] > 0
     assert (rec["nn"] > rec["nn_grouped"]) == (coarse == "fpfh")
+
+
+# --- multi-sequence odometry, the mesh, sharded PGO, the native reader
+# (the CPU parity tests: tests/test_torch_{multiseq,parallel,native_io}.py)
+
+def _drives(n_seq, n_frames, seed=93):
+    """``n_seq`` drives of the street scene east at 0.4 m/frame, each from
+    its own start, as padded frames of the small width."""
+    from mulls_tpu_torch.io.dataset import pad_cloud
+    pose, scan = _street_scene(seed)
+    return [[pad_cloud(scan(pose(-8.0 + s + 0.4 * k, -1.0 - 0.5 * s, 0.0)),
+                       16384)
+             for k in range(n_frames)] for s in range(n_seq)]
+
+
+def test_multiseq_on_the_card_equals_each_run_alone(dev):
+    """Three sequences on a one-card mesh, stepped in turn, the last a
+    frame shorter: each equals ``OdometryPipeline`` alone bit for bit,
+    registers every frame (host draws: the
+    CPU's numbers, on which these drives register), and launched the front
+    end's kernels."""
+    from mulls_tpu_torch.parallel.mesh import make_mesh
+    from mulls_tpu_torch.parallel.multiseq import MultiSeqPipeline
+    from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
+    cfg = _small_reg_cfg()
+    seqs = _drives(3, 6)
+    seqs[2] = seqs[2][:5]
+    pipe = MultiSeqPipeline(cfg, make_mesh(1), segment=4)
+    res = pipe.run(seqs, draws=[_HostDraws(s, dev) for s in range(3)])
+    for s, r in enumerate(res):
+        alone = OdometryPipeline(pipe.cfg, segment=4, device=dev,
+                                 draws=_HostDraws(s, dev)).run(seqs[s])
+        assert r.codes == alone.codes and all(c == 1 for c in r.codes)
+        np.testing.assert_array_equal(r.poses, alone.poses)
+        for name in ("nn_grouped", "moments", "pca_moments"):
+            assert pipe.launches[s][name] > 0, (s, name)
+
+
+def test_make_mesh_lists_the_cards(dev):
+    from mulls_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    assert make_mesh().devices == tuple(torch.device("cuda", i)
+                                        for i in range(n))
+    with pytest.raises(ValueError, match="cards"):
+        make_mesh(n + 1)
+
+
+def test_sharded_pgo_on_the_card(dev):
+    """The ring of tests/test_multiseq.py on four entries of the card:
+    within 1e-3 m of the one-device solver on the card, within 1e-4 of the
+    same mesh on the CPU, and the same bits twice."""
+    from mulls_tpu_torch.backend.pgo import (optimize_pose_graph,
+                                             optimize_pose_graph_sharded)
+    from mulls_tpu_torch.parallel.mesh import Mesh
+    from mulls_tpu_torch.parallel.ring_check import ring_graph, torch_graph
+    g = ring_graph()
+    card = Mesh((dev,) * 4)
+    t, q, chi2 = optimize_pose_graph_sharded(torch_graph(g, dev), card,
+                                             iterations=15)
+    t1, _, _ = optimize_pose_graph(torch_graph(g, dev), iterations=15)
+    tc, _, _ = optimize_pose_graph_sharded(
+        torch_graph(g), Mesh((torch.device("cpu"),) * 4), iterations=15)
+    np.testing.assert_allclose(t.cpu().numpy(), t1.cpu().numpy(), atol=1e-3)
+    np.testing.assert_allclose(t.cpu().numpy(), tc.numpy(), atol=1e-4)
+    assert _same_bits(lambda: optimize_pose_graph_sharded(
+        torch_graph(g, dev), card, iterations=15)[0])
+
+
+def test_native_reader_feeds_the_card_as_the_numpy_reader(dev, tmp_path):
+    """Packed segments from the C++ workers, uploaded once a segment, give
+    the frames the numpy reader's pack gives."""
+    from mulls_tpu_torch.io import native
+    from mulls_tpu_torch.io.dataset import FolderDataset
+    from mulls_tpu_torch.io.pcd import write_pcd
+    from mulls_tpu_torch.pipeline.odometry import prefetch_frames
+    assert native.native_available()
+    for k, f in enumerate(_drives(1, 5)[0]):
+        m = f["mask"]
+        write_pcd(str(tmp_path / f"{k:06d}.pcd"), f["xyz"][m],
+                  f["intensity"][m] / 255.0)
+    got = list(prefetch_frames(FolderDataset(str(tmp_path), 16384), dev,
+                               segment=2))
+    want = list(prefetch_frames(FolderDataset(str(tmp_path), 16384,
+                                              native=False), dev))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert a.xyz_q.is_cuda
+        for name in ("xyz_q", "intensity_q", "ts_q", "n"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
