@@ -19,7 +19,13 @@ Phases (each prints its own line; any failure exits non-zero):
               1024 x 1024 (r = 1.8, a pillar map).  Times the kernel on
               the device (torch.profiler) and per call with CUDA events,
               the plain version and, where one exists, a library
-              yardstick (timed here only).
+              yardstick (timed here only).  Then the batched step's three
+              kernels at S = 8 sequences of the full-width shapes (the
+              five ICP classes, 40 problems, one nn launch; moments' two
+              passes; the frame PCA): one launch for all 8 against 8
+              single launches bit for bit and the plain version on the
+              last sequence, same bits twice, device and CUDA-event ms
+              beside the 8 single launches', bound 8 x the single one.
 4. probe    — the roofline probe's two kernels against their plain
               versions on the card: ``count_within`` (a cell-grid count:
               the support sorted into cells of side sqrt(max r2), one
@@ -146,21 +152,25 @@ Phases (each prints its own line; any failure exits non-zero):
               written; ms of the vote pass, the fine edges and the PGO.
 15. multiseq — ``MultiSeqPipeline`` at full width on a one-device mesh:
               four drives of the street (16 frames, one cut to 12),
-              stepped in turn on one stream.  Each sequence must
+              stepped as one [4, ...] batch.  Each sequence must
               equal an ``OdometryPipeline`` run of it alone (the
               multi-sequence config, seed ``cfg.seed + s``) bit for bit,
               register >= 90 % of its frames after the first with code 1,
               and launch ``nn_grouped``, ``moments`` and ``pca_moments``.
-              Then the aggregate frames/s at S = 1, 4 and 8 (the drives
-              repeated, read back as KITTI .bin through the native
-              reader), timed after a 4-frame warm-up segment with a sync
-              at the end of each segment, with the kernel launches per
-              sequence-frame; at S = 8 the device's busy share over one
-              more steady segment (torch.profiler: the union of the
-              kernels' intervals over the unprofiled segment time) and
-              its device operations per sequence-frame; then S = 8 over
-              4 processes sharing the card (a gloo group) on the same
-              reader, so that the processes are the one change.
+              Then the aggregate frames/s at S = 1, 4 and 8 in one batch
+              (the drives repeated, read back as KITTI .bin through the
+              native reader), timed after a 4-frame warm-up segment with
+              a sync at the end of each segment, with the kernel launches
+              per sequence-frame (at S = 8 at most 1.25/8 of S = 1's); at
+              S = 1 and 8 the device's busy share over one more steady
+              segment (torch.profiler: the union of the kernels'
+              intervals over the unprofiled segment time), its device
+              operations per sequence-frame (at S = 8 below half of
+              S = 1's) and the host syncs per batched frame (the
+              runtime's synchronize calls; at S = 8 at most 8 x S = 1's),
+              with the device-to-host copies beside them; then S = 8
+              over 4 processes sharing the card (a gloo group) on the
+              same reader, each batching its block of 2.
 16. fleet   — the native IO library built from the port's source (the
               phase fails if it does not build);
               ``apps.slam_multiseq.main`` over two folders of 8 street
@@ -546,6 +556,180 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
                                            seed).items():
         rows.append(pca_check(shape, q, p, pm, r2))
     return rows
+
+
+BATCH_S = 8  # the sequences of the batched kernel checks
+
+
+def batched_kernel_phase(scan: dict, dev, seed: int) -> dict:
+    """The three kernels of the batched step at S = BATCH_S sequences,
+    each sequence its own random subsets of the scan at the main path's
+    full-width shapes: one batched launch against BATCH_S single launches
+    bit for bit (tolerance 0: an entry keeps its own tiles, chunks and
+    merge order), against the plain version on the last entry (nn: bit for
+    bit; moments and pca_moments: counts exact, sums as in the kernel
+    phase, on its first 1024 queries), and the same bits twice; then the
+    batched launch's device and CUDA-event ms beside the BATCH_S single
+    launches', and its bound (the single launch's, x BATCH_S, from this
+    run's hits)."""
+    import torch
+    from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
+
+    rng = np.random.default_rng(seed + 3)
+    valid = np.where(scan["mask"])[0]
+    pts = scan["xyz"][valid]
+    S = BATCH_S
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    def clouds(n, valid_frac, jitter=0.0):
+        xyz = np.stack([pts[rng.choice(len(pts), n, replace=False)]
+                        for _ in range(S)])
+        xyz = xyz + jitter * rng.normal(size=xyz.shape).astype(np.float32)
+        return t(xyz), t(rng.uniform(size=(S, n)) < valid_frac, torch.bool)
+
+    def entries_equal(name, batched, single):
+        """batched: a tuple of [S, ...] outputs; single(s): entry s's."""
+        for s in range(S):
+            for k, (b, a) in enumerate(zip(batched, single(s))):
+                if not torch.equal(b[s], a):
+                    raise AssertionError(f"{name}: sequence {s}, output {k} "
+                                         f"differs from its single launch")
+
+    def report(name, shape, fn, singles, flops, nbytes, extra=""):
+        if not same_bits(fn):
+            raise AssertionError(f"{name} S = {S}: two launches differ")
+        ms, ops = device_ms(fn, 20)
+        ev = time_ms(fn, 20)
+        s_ms, s_ops = device_ms(singles, 10)
+        s_ev = time_ms(singles, 10)
+        b, by = bound_ms(flops, nbytes)
+        print(f"[kernels] {name} batched, S = {S} x {shape}: every sequence "
+              f"equal to its single launch bit for bit{extra}, same bits "
+              f"twice; one launch {ms:.4f} ms on the device ({ops:.0f} "
+              f"device operations a call; {ev:.4f} ms with CUDA events), "
+              f"{S} single launches {s_ms:.4f} ms on the device "
+              f"({s_ops:.0f} operations; {s_ev:.4f} ms with CUDA events), "
+              f"bound {b:.5f} ms ({by}; {S} x the single bound)",
+              flush=True)
+        return {"shape": f"{S} x {shape}", "sequences": S, "ms": ms,
+                "event_ms": ev, "device_ops_per_call": ops,
+                "single_launches_ms": s_ms, "single_launches_event_ms": s_ev,
+                "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}
+
+    out = {}
+    # --- nn: one ICP iteration's five classes for S sequences, one launch
+    icp_shapes = ((800, 6144), (400, 1536), (1200, 8192), (200, 1024),
+                  (200, 512))
+    group = []
+    for qn, pn in icp_shapes:
+        q, qm = clouds(qn, 0.9, jitter=0.05)
+        p, pm = clouds(pn, 0.9)
+        group.append((q, qm, p, pm))
+    kernels.reset_launch_counts()
+    got = kernels.nn_grouped(group)
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["nn"] != 1:
+        raise AssertionError(f"nn_grouped S = {S}: "
+                             f"{kernels.launch_counts()['nn']} launches")
+    flat = [x for pair in got for x in pair]
+    entries_equal("nn_grouped", flat, lambda s: [
+        x for pair in kernels.nn_grouped([tuple(a[s] for a in pr)
+                                          for pr in group]) for x in pair])
+    plain = kernels.nn_grouped_plain([tuple(a[S - 1] for a in pr)
+                                      for pr in group])
+    for (ik, dk), (ip, dp) in zip(got, plain):
+        if not (torch.equal(ik[S - 1], ip) and torch.equal(dk[S - 1], dp)):
+            raise AssertionError(f"nn_grouped S = {S}: the last sequence "
+                                 f"differs from the plain version")
+    pairs = S * sum(qn * pn for qn, pn in icp_shapes)
+    nbytes = S * sum(qn * 13 + pn * 13 + qn * 8 for qn, pn in icp_shapes)
+    out["nn_grouped"] = report(
+        "nn_grouped", " + ".join(f"{qn}x{pn}" for qn, pn in icp_shapes),
+        lambda: kernels.nn_grouped(group),
+        lambda: [kernels.nn_grouped([tuple(a[s] for a in pr)
+                                     for pr in group]) for s in range(S)],
+        9.0 * pairs, nbytes, extra=" and the plain version")
+
+    # --- moments: the descriptor's two passes, 4096 x 20480 a sequence
+    p, pm = clouds(20480, 0.95)
+    q, _ = clouds(4096, 1.0)
+    r2 = torch.full((S, 4096), 0.7 ** 2, dtype=torch.float32, device=dev)
+    ones = torch.ones((S, 20480, 1), dtype=torch.float32, device=dev)
+    s1, _ = kernels.moments(q, p, pm, r2, ones)
+    r2s = (r2 * torch.clamp(25.0 / torch.clamp(s1[..., 0], min=1.0),
+                            max=1.0)).contiguous()
+    cr2 = torch.clamp(r2s, max=0.64 * 0.49).contiguous()
+    cls = rng.integers(0, 5, (S, 20480))
+    f6 = t(np.concatenate([np.ones((S, 20480, 1), np.float32),
+                           np.eye(5, dtype=np.float32)[cls][..., 1:],
+                           rng.uniform(size=(S, 20480, 1))], -1)
+           .astype(np.float32))
+    s2, c2 = kernels.moments(q, p, pm, r2s, f6, cr2)
+    entries_equal("moments", (s1,), lambda s: kernels.moments(
+        q[s], p[s], pm[s], r2[s], ones[s])[:1])
+    entries_equal("moments", (s2, c2), lambda s: kernels.moments(
+        q[s], p[s], pm[s], r2s[s], f6[s], cr2[s]))
+    e = S - 1
+    ps2, pc2 = kernels.moments_plain(q[e, :1024], p[e], pm[e], r2s[e, :1024],
+                                     f6[e], cr2[e, :1024])
+    err = max(float((s2[e, :1024] - ps2).abs().max()),
+              float((c2[e, :1024] - pc2).abs().max()))
+    if not (torch.equal(s2[e, :1024, :5], ps2[:, :5])
+            and torch.equal(c2[e, :1024, :5], pc2[:, :5]) and err <= 1e-4):
+        raise AssertionError(f"moments S = {S}: the last sequence differs "
+                             f"from the plain version (max err {err})")
+    hits = float(s1[..., 0].sum() + 6.0 * s2[..., 0].sum()
+                 + 6.0 * c2[..., 0].sum())
+    flops = 10.0 * 2 * S * 4096 * 20480 + hits
+    nbytes = S * (2 * (4096 * 16 + 20480 * 13) + 20480 * 28
+                  + 4096 * (4 + 48))
+    out["moments"] = report(
+        "moments", "2 x 4096x20480",
+        lambda: (kernels.moments(q, p, pm, r2, ones),
+                 kernels.moments(q, p, pm, r2s, f6, cr2)),
+        lambda: [(kernels.moments(q[s], p[s], pm[s], r2[s], ones[s]),
+                  kernels.moments(q[s], p[s], pm[s], r2s[s], f6[s], cr2[s]))
+                 for s in range(S)],
+        flops, nbytes, extra=f" (two launches a pair of passes); the "
+                             f"plain version on the last's first 1024 "
+                             f"queries: counts exact, max|err| {err:.3g}")
+    out["moments"]["max_abs_err"] = err
+
+    # --- pca_moments: the frame PCA, 10240 Morton-ordered queries of a
+    # sequence's 20480 unground points, r = 0.7
+    from mulls_tpu_torch.ops.pca import morton_order
+    p, pm = clouds(20480, 0.95)
+    q = p[:, :10240]
+    q = torch.stack([q[s][morton_order(q[s])] for s in range(S)])
+    r2 = torch.full((S, 10240), 0.49, dtype=torch.float32, device=dev)
+    cnt, s1p, s2p = kernels.pca_moments(q, p, pm, r2)
+    entries_equal("pca_moments", (cnt, s1p, s2p), lambda s: kernels.pca_moments(
+        q[s], p[s], pm[s], r2[s]))
+    pc, p1, p2 = kernels.pca_moments_plain(q[e, :1024], p[e], pm[e],
+                                           r2[e, :1024])
+    err = max(float((s1p[e, :1024] - p1).abs().max()),
+              float((s2p[e, :1024] - p2).abs().max()))
+    if not (torch.equal(cnt[e, :1024], pc) and err <= 1e-4):
+        raise AssertionError(f"pca_moments S = {S}: the last sequence "
+                             f"differs from the plain version (max err "
+                             f"{err})")
+    hits = float(cnt.sum())
+    flops = 10.0 * S * 10240 * 20480 + 15.0 * hits
+    nbytes = S * (10240 * 16 + 20480 * 13 + 10240 * 40)
+    out["pca_moments"] = report(
+        "pca_moments", "10240x20480", lambda: kernels.pca_moments(
+            q, p, pm, r2),
+        lambda: [kernels.pca_moments(q[s], p[s], pm[s], r2[s])
+                 for s in range(S)],
+        flops, nbytes, extra=f" (chunk {kernels.pca_chunk(10240, 20480)}, "
+                             f"{hits / (S * 10240):.2f} hits a query); the "
+                             f"plain version on the last's first 1024 "
+                             f"queries: counts exact, max|err| {err:.3g}")
+    out["pca_moments"]["max_abs_err"] = err
+    return out
 
 
 def pca_check(shape: str, q, p, pm, r2) -> dict:
@@ -2371,34 +2555,80 @@ def spawn(target, args_of_rank, world: int, timeout: float) -> None:
                              f"{[p.exitcode for p in procs]}")
 
 
-def busy_share(prof, seq_frames: int, profiled_ms: float,
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize", "cudaMemcpy")
+
+
+def busy_share(prof, S: int, batched_frames: int, profiled_ms: float,
                fps_aggregate: float):
-    """The device's busy time over a profiled segment of ``seq_frames``
-    sequence-frames (the union of its kernels' intervals), over the time
-    the segment takes at the unprofiled rate."""
+    """Over a profiled segment of ``batched_frames`` batched frames of S
+    sequences: the device's busy time (the union of its kernels'
+    intervals) over the time the segment takes at the unprofiled rate, the
+    device operations per sequence-frame, and the host syncs per batched
+    frame (the runtime's synchronize calls, and the device-to-host copies
+    beside them)."""
     from torch.autograd import DeviceType
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    seq_frames = S * batched_frames
     if not kern:
-        print("[multiseq] device busy share at S = 8 not measured: the "
-              "profiler recorded no device activity", flush=True)
+        print(f"[multiseq] device busy share at S = {S} not measured: the "
+              f"profiler recorded no device activity", flush=True)
         return None
+    syncs = sum(1 for e in events if e.name in _SYNC_CALLS)
+    dtoh = sum(1 for e in kern if "DtoH" in e.name)
     spans = [(e.time_range.start, e.time_range.end) for e in kern]
     busy = union_ms(spans)
     summed = sum(b - a for a, b in spans) / 1e3
     unprofiled_ms = 1e3 * seq_frames / fps_aggregate
-    print(f"[multiseq] S = 8, one steady segment under torch.profiler "
-          f"({seq_frames} sequence-frames): device busy {busy:.2f} ms (the "
-          f"union of its kernels; {summed:.2f} ms summed) "
-          f"in {unprofiled_ms:.2f} ms at the unprofiled rate "
-          f"({profiled_ms:.2f} ms profiled): busy "
+    print(f"[multiseq] S = {S}, one steady segment under torch.profiler "
+          f"({batched_frames} batched frames, {seq_frames} sequence-frames):"
+          f" device busy {busy:.2f} ms (the union of its kernels; "
+          f"{summed:.2f} ms summed) in {unprofiled_ms:.2f} ms at the "
+          f"unprofiled rate ({profiled_ms:.2f} ms profiled): busy "
           f"{100.0 * busy / unprofiled_ms:.1f} %; "
           f"{len(kern) / seq_frames:.0f} device operations per "
-          f"sequence-frame", flush=True)
+          f"sequence-frame; host syncs per batched frame "
+          f"{syncs / batched_frames:.1f} ({dtoh / batched_frames:.1f} "
+          f"device-to-host copies)", flush=True)
     return {"busy_ms": busy, "kernel_ms_summed": summed,
             "profiled_window_ms": profiled_ms,
             "unprofiled_window_ms": unprofiled_ms,
             "busy_share": busy / unprofiled_ms,
-            "device_ops_per_sequence_frame": len(kern) / seq_frames}
+            "device_ops_per_sequence_frame": len(kern) / seq_frames,
+            "host_syncs_per_batched_frame": syncs / batched_frames,
+            "dtoh_copies_per_batched_frame": dtoh / batched_frames}
+
+
+class SyncWatch:
+    """The host's syncs by call site: torch.cuda's sync debug mode warns at
+    each operation that synchronizes with the device, and the warnings'
+    locations (the Python line that called the operation, relative to the
+    checkout) are counted between :meth:`start` and :meth:`stop`."""
+
+    def __init__(self):
+        self.sites: dict = {}
+        self._cm = None
+
+    def start(self) -> None:
+        import warnings
+
+        import torch
+        self._cm = warnings.catch_warnings(record=True)
+        self._caught = self._cm.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def stop(self) -> None:
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(None, None, None)
+        here = os.path.dirname(os.path.abspath(__file__))
+        for w in self._caught:
+            if "synchroniz" not in str(w.message):
+                continue
+            site = f"{os.path.relpath(w.filename, here)}:{w.lineno}"
+            self.sites[site] = self.sites.get(site, 0) + 1
 
 
 def union_ms(intervals: list) -> float:
@@ -2416,15 +2646,18 @@ def union_ms(intervals: list) -> float:
 
 def multiseq_phase(world: np.ndarray, dev) -> dict:
     """``MultiSeqPipeline`` at full width on a one-device mesh: four drives
-    of the street (one cut to 12 frames), each sequence against an
-    ``OdometryPipeline`` run of it alone with the multi-sequence config
-    and seed ``cfg.seed + s``: the same codes and poses bit for bit.
-    Then the aggregate frames/s at S = 1, 4 and 8 (the four drives,
-    repeated, written as KITTI .bin and read through the native reader),
-    timed over 8 frames after 4 of warm-up with a sync at the end of each
-    2-frame segment, and the device's busy share at S = 8 over one more
-    segment under torch.profiler; then S = 8 over MULTISEQ_RANKS
-    processes sharing the card on the same reader."""
+    of the street (one cut to 12 frames) stepped as one batch, each
+    sequence against an ``OdometryPipeline`` run of it alone with the
+    multi-sequence config and seed ``cfg.seed + s``: the same codes and
+    poses bit for bit.  Then the aggregate frames/s at S = 1, 4 and 8 in
+    one batch (the four drives, repeated, written as KITTI .bin and read
+    through the native reader), timed over 8 frames after 4 of warm-up
+    with a sync at the end of each 2-frame segment, with the kernel
+    launches per sequence-frame; at S = 1 and 8 the device's busy share,
+    its operations per sequence-frame and the host's syncs per batched
+    frame over one more segment under torch.profiler; then S = 8 over
+    MULTISEQ_RANKS processes sharing the card on the same reader, each
+    rank batching its block of 2."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2449,11 +2682,12 @@ def multiseq_phase(world: np.ndarray, dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {"frames": [len(c) for c in check], "seconds": wall,
-           "launches": pipe.launches, "sequences": []}
+           "launches": pipe.block_launches, "sequences": []}
     print(f"[multiseq] {len(check)} sequences ({out['frames']} frames) on "
-          f"{[str(d) for d in mesh.devices]} in {wall:.2f} s: "
+          f"{[str(d) for d in mesh.devices]}, one batch, in {wall:.2f} s: "
           f"{sum(out['frames']) / wall:.2f} frames/s aggregate, the first "
-          f"frames included", flush=True)
+          f"frames included; the batch's launches {pipe.block_launches[0]}",
+          flush=True)
     for s, r in enumerate(res):
         alone = OdometryPipeline(pipe.cfg.replace(seed=cfg.seed + s),
                                  device=dev).run(check[s])
@@ -2474,8 +2708,7 @@ def multiseq_phase(world: np.ndarray, dev) -> dict:
               f"{r.codes}; end error {end:.4f} m; alone: "
               f"{'the same codes and poses bit for bit' if same else 'differs'}"
               f" (T_rel max |d| {rec['max_rel_dt_m']:.3g} m, "
-              f"{rec['max_rel_dR']:.3g}); launches {pipe.launches[s]}",
-              flush=True)
+              f"{rec['max_rel_dR']:.3g})", flush=True)
 
     # the rates: the drives written as KITTI .bin and read back through
     # the native reader, as a fleet run reads its logs; S = 1, 4 and 8 in
@@ -2492,32 +2725,41 @@ def multiseq_phase(world: np.ndarray, dev) -> dict:
         for s, seq in enumerate(pool):
             folders.append(os.path.join(tmp, f"drive{s}"))
             os.makedirs(folders[-1])
-            for k, f in enumerate(seq[:steady_end + MULTISEQ_SEGMENT]):
+            for k, f in enumerate(seq[:steady_end + 2 * MULTISEQ_SEGMENT]):
                 _write_bin(os.path.join(folders[-1], f"{k:06d}.bin"), f)
+        busy = {}
         for S in (1, 4, 8):
-            # at S = 8 one more segment, under the profiler: the device
-            prof = (profile(activities=[ProfilerActivity.CUDA
-                                        if dev.type == "cuda"
-                                        else ProfilerActivity.CPU])
-                    if S == 8 else None)
-            n = steady_end + (MULTISEQ_SEGMENT if prof is not None else 0)
+            # at S = 1 and 8 one more segment, under the profiler: the
+            # device, and the host's syncs
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if S in (1, 8) else None)
+            # and one more after it, under torch.cuda's sync debug mode:
+            # the host syncs by call site
+            n_prof = steady_end + (MULTISEQ_SEGMENT if prof is not None
+                                   else 0)
+            n = n_prof + (MULTISEQ_SEGMENT if prof is not None else 0)
             marks = {}
+            watch = SyncWatch()
 
             def hook(k):
                 marks[k] = time.perf_counter()
                 if prof is not None and k == steady_end:
                     prof.start()
-                elif prof is not None and k == n:
+                elif prof is not None and k == n_prof:
                     prof.stop()
                     marks["profiled"] = time.perf_counter()
+                    watch.start()
+                elif prof is not None and k == n:
+                    watch.stop()
 
             p = MultiSeqPipeline(cfg, mesh, segment=MULTISEQ_SEGMENT)
             p.run([FolderDataset(folders[s % len(folders)], cfg.shapes.n_raw,
                                  end=n) for s in range(S)], on_segment=hook)
             steady = S * MULTISEQ_TIMED
             secs = marks[steady_end] - marks[MULTISEQ_WARM]
-            per_seq_frame = {k: sum(x[k] for x in p.launches) / (S * n)
-                             for k in p.launches[0]}
+            per_seq_frame = {k: sum(x[k] for x in p.block_launches) / (S * n)
+                             for k in p.block_launches[0]}
             rates[str(S)] = {"fps_aggregate": steady / secs,
                              "steady_frames": steady, "seconds": secs,
                              "launches_per_sequence_frame": per_seq_frame}
@@ -2526,13 +2768,25 @@ def multiseq_phase(world: np.ndarray, dev) -> dict:
                   f"{steady / secs:.3f} frames/s aggregate "
                   f"({steady / secs / S:.3f} per sequence); kernel launches "
                   f"per sequence-frame "
-                  + ", ".join(f"{k} {v:.2f}"
+                  + ", ".join(f"{k} {v:.3f}"
                               for k, v in per_seq_frame.items() if v),
                   flush=True)
-        out["busy"] = busy_share(
-            prof, S * MULTISEQ_SEGMENT,
-            1e3 * (marks["profiled"] - marks[steady_end]),
-            rates["8"]["fps_aggregate"])
+            if prof is not None:
+                busy[str(S)] = busy_share(
+                    prof, S, MULTISEQ_SEGMENT,
+                    1e3 * (marks["profiled"] - marks[steady_end]),
+                    rates[str(S)]["fps_aggregate"])
+                sites = watch.sites
+                total = sum(sites.values())
+                busy[str(S)]["sync_sites_per_batched_frame"] = {
+                    k: v / MULTISEQ_SEGMENT for k, v in sites.items()}
+                print(f"[multiseq] S = {S}, one steady segment under the "
+                      f"sync debug mode: {total / MULTISEQ_SEGMENT:.1f} "
+                      f"synchronizing operations per batched frame: "
+                      + "; ".join(f"{k} x{v / MULTISEQ_SEGMENT:g}"
+                                  for k, v in sorted(sites.items())),
+                      flush=True)
+        out["busy"] = busy
         init = "file://" + os.path.join(tmp, "rendezvous")
         outs = [os.path.join(tmp, f"rank{r}.json")
                 for r in range(MULTISEQ_RANKS)]
@@ -2821,9 +3075,10 @@ def main() -> int:
     if min(counts) < 100_000:
         return fail("a scan has fewer than 100k valid points")
 
-    # --- phase 3: kernels vs plain
+    # --- phase 3: kernels vs plain, single and batched
     try:
         rows = kernel_phase(frames[0], world, gt[0], dev, SEED)
+        batched = batched_kernel_phase(frames[0], dev, SEED)
     except AssertionError as e:
         return fail(f"kernel check: {e}")
 
@@ -2928,6 +3183,15 @@ def main() -> int:
         if name == "nn":
             # FPFH-SAC's scoring call in the reg CLI's fpfh mode
             kernels_line[-1]["sac_ia"] = reg["sac_ia_nn"]
+        if name in batched:
+            # one launch for BATCH_S sequences (the kernel phase), with the
+            # launches a sequence-frame of phase 15's batches of 8 and 1
+            rate = multiseq["rates"]
+            kernels_line[-1][f"batched_s{BATCH_S}"] = dict(
+                batched[name], launches_per_sequence_frame=rate[
+                    str(BATCH_S)]["launches_per_sequence_frame"][name],
+                launches_per_sequence_frame_s1=rate["1"][
+                    "launches_per_sequence_frame"][name])
     # the probe's kernels: count_within at the map assembly's shape with the
     # filter's launches (the probe's run kept as a record), adj_stack with
     # the probe's own
@@ -3069,6 +3333,27 @@ def main() -> int:
     if [r["frames"] for r in multiseq["sequences"]] != multiseq["frames"]:
         problems.append("multiseq results are not truncated to each "
                         "sequence's length")
+    # the batch: each kernel launched once for the 8 sequences of a step,
+    # so ~1/8 of one sequence's launches a sequence-frame; fewer device
+    # operations; no more host syncs than 8 single frames
+    r1 = multiseq["rates"]["1"]["launches_per_sequence_frame"]
+    r8 = multiseq["rates"]["8"]["launches_per_sequence_frame"]
+    for name in ("nn_grouped", "moments", "pca_moments"):
+        if not 0 < r8[name] <= 1.25 * r1[name] / 8:
+            problems.append(f"multiseq: {name} launched {r8[name]} times a "
+                            f"sequence-frame at S = 8, {r1[name]} at S = 1")
+    b1, b8 = multiseq["busy"].get("1"), multiseq["busy"].get("8")
+    if b1 and b8:
+        if not (b8["device_ops_per_sequence_frame"]
+                < 0.5 * b1["device_ops_per_sequence_frame"]):
+            problems.append(f"multiseq: {b8['device_ops_per_sequence_frame']}"
+                            f" device operations a sequence-frame at S = 8, "
+                            f"{b1['device_ops_per_sequence_frame']} at S = 1")
+        if not (b8["host_syncs_per_batched_frame"]
+                <= 8 * b1["host_syncs_per_batched_frame"]):
+            problems.append(f"multiseq: {b8['host_syncs_per_batched_frame']}"
+                            f" host syncs a batched frame at S = 8, above 8 x"
+                            f" {b1['host_syncs_per_batched_frame']}")
 
     if args.out:
         slam_rec = {k: v for k, v in slam.items()

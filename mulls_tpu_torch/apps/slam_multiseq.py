@@ -3,10 +3,10 @@
 
 Runs LiDAR odometry over MANY scan folders at once, the sequences on the
 mesh's entries in contiguous blocks (``parallel/multiseq.py``): on one
-card the sequences are stepped in turn.  With several
+card a process steps its sequences as one batch.  With several
 processes, set ``MULLS_TPU_COORDINATOR`` / ``MULLS_TPU_NUM_PROCESSES`` /
 ``MULLS_TPU_PROCESS_ID`` or run under torchrun
-(``parallel/distributed.py``); each rank then runs its block of
+(``parallel/distributed.py``); each rank then batches its block of
 sequences on its card.  Ranks may share a card (gloo); ``PERF.md`` §6
 has the aggregate rates measured on one card.
 

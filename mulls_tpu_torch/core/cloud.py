@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from mulls_tpu_torch.core.batch import rotate, take
 from mulls_tpu_torch.core.tree import Struct, tree_map
 
 # feature class order mirrors the reference's used_feature_type bitstring
@@ -105,16 +106,19 @@ def pack_raw_host(data: dict, with_ts: bool = True) -> PackedRawCloud:
 
 
 def unpack_raw(p: PackedRawCloud) -> RawCloud:
-    """Device-side decode (the first stage of the per-frame step)."""
+    """Device-side decode (the first stage of the per-frame step); a
+    packed batch ``[S, N, ...]`` with counts ``n`` [S] decodes to a batch
+    of clouds."""
     n = p.capacity
     dev = p.xyz_q.device
-    mask = torch.arange(n, dtype=torch.int32, device=dev) < p.n
+    mask = torch.arange(n, dtype=torch.int32, device=dev) < p.n[..., None]
     return RawCloud(
         xyz=p.xyz_q.to(torch.float32) * (1.0 / XYZ_SCALE),
         intensity=p.intensity_q.to(torch.float32) * (1.0 / 255.0),
         ts_ratio=(p.ts_q.to(torch.float32) * (1.0 / 65535.0)
                   if p.ts_q is not None
-                  else torch.zeros((n,), dtype=torch.float32, device=dev)),
+                  else torch.zeros(p.xyz_q.shape[:-1], dtype=torch.float32,
+                                   device=dev)),
         mask=mask,
         label=(p.label.to(torch.int32) if p.label is not None else None),
     )
@@ -157,21 +161,27 @@ class FeatureCloud(Struct):
             mask=torch.zeros((n,), dtype=torch.bool, device=device))
 
     def gather(self, idx: torch.Tensor, valid: torch.Tensor) -> "FeatureCloud":
-        """Select rows by index with a fresh validity mask."""
+        """Select rows by index (per batch entry: ``idx`` [..., K]) with a
+        fresh validity mask."""
         return FeatureCloud(
-            xyz=self.xyz[idx], normal=self.normal[idx],
-            intensity=self.intensity[idx], strength=self.strength[idx],
-            height=self.height[idx], ts_ratio=self.ts_ratio[idx],
-            mask=valid & self.mask[idx])
+            xyz=take(self.xyz, idx), normal=take(self.normal, idx),
+            intensity=take(self.intensity, idx),
+            strength=take(self.strength, idx),
+            height=take(self.height, idx), ts_ratio=take(self.ts_ratio, idx),
+            mask=valid & take(self.mask, idx))
 
     def transform(self, T: torch.Tensor,
                   rotate_normals: bool = True) -> "FeatureCloud":
-        xyz = self.xyz @ T[:3, :3].T + T[:3, 3]
-        normal = self.normal @ T[:3, :3].T if rotate_normals else self.normal
+        """``T`` [..., 4, 4] applied to the cloud [..., N]."""
+        R = T[..., :3, :3]
+        xyz = rotate(R, self.xyz) + T[..., None, :3, 3]
+        normal = rotate(R, self.normal) if rotate_normals else self.normal
         return self.replace(xyz=xyz, normal=normal)
 
     def concat(self, other: "FeatureCloud") -> "FeatureCloud":
-        return tree_map(lambda a, b: torch.cat([a, b], dim=0), self, other)
+        """The two clouds' rows, along the point axis of each entry."""
+        return tree_map(lambda a, b: torch.cat(
+            [a, b], dim=self.mask.dim() - 1), self, other)
 
 
 @dataclass
@@ -220,9 +230,11 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor, dim=None):
 
 
 def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest entries, ties to the lower index —
-    ``lax.top_k``'s order (``torch.topk`` promises no tie order)."""
-    return torch.sort(score, descending=True, stable=True).indices[:k]
+    """Indices of the ``k`` largest entries along the last axis, ties to
+    the lower index — ``lax.top_k``'s order (``torch.topk`` promises no tie
+    order)."""
+    return torch.sort(score, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
 
 
 def compact_topk_random(mask: torch.Tensor, k: int, u: torch.Tensor,
@@ -239,11 +251,11 @@ def compact_topk_random(mask: torch.Tensor, k: int, u: torch.Tensor,
     score = u if prefer is None else u + prefer
     score = torch.where(mask, score, -_BIG)
     idx = top_k_indices(score, k)
-    return idx, mask[idx]
+    return idx, take(mask, idx)
 
 
 def compact_topk_score(mask: torch.Tensor, score: torch.Tensor, k: int):
     """Pick the top-k valid rows by score. Returns (indices [k], valid [k])."""
     s = torch.where(mask, score, -_BIG)
     idx = top_k_indices(s, k)
-    return idx, mask[idx]
+    return idx, take(mask, idx)

@@ -10,6 +10,11 @@ same way and draws the same shapes.  Production draws come from one
 ``torch.Generator`` seeded from ``cfg.seed``; a test can supply an
 implementation that replays the JAX key tree so that both packages see the
 same numbers.
+
+:class:`StackedDraws` serves S sequences stepped as one batch
+(``parallel/multiseq.py``): each sequence keeps its own stream, and a draw
+of shape ``[S, ...]`` stacks each sequence's own draw of ``[...]``, so a
+sequence sees the numbers it would see alone.
 """
 
 from __future__ import annotations
@@ -62,3 +67,39 @@ class GeneratorDraws:
 
     def set_state(self, state) -> None:
         self.gen.set_state(torch.as_tensor(state, dtype=torch.uint8))
+
+
+class StackedDraws:
+    """The draws of S sequences stepped as one batch: ``draws[s]`` is
+    sequence s's own stream.  ``uniform`` and ``bits`` take the batched
+    shape ``[S, ...]`` and stack each stream's draw of ``[...]``."""
+
+    def __init__(self, draws: Sequence[Draws]):
+        self.draws = list(draws)
+
+    def split(self, n: int) -> List["StackedDraws"]:
+        kids = [d.split(n) for d in self.draws]
+        return [StackedDraws([k[i] for k in kids]) for i in range(n)]
+
+    def _each(self, shape) -> tuple:
+        shape = tuple(shape)
+        if not shape or shape[0] != len(self.draws):
+            raise ValueError(f"a draw of {len(self.draws)} stacked streams "
+                             f"needs a shape [{len(self.draws)}, ...], got "
+                             f"{list(shape)}")
+        return shape[1:]
+
+    def uniform(self, shape) -> torch.Tensor:
+        each = self._each(shape)
+        return torch.stack([d.uniform(each) for d in self.draws])
+
+    def bits(self, shape) -> torch.Tensor:
+        each = self._each(shape)
+        return torch.stack([d.bits(each) for d in self.draws])
+
+    def get_state(self):
+        return [d.get_state() for d in self.draws]
+
+    def set_state(self, state) -> None:
+        for d, st in zip(self.draws, state):
+            d.set_state(st)

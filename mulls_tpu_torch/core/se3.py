@@ -6,16 +6,25 @@ Euler conventions follow the reference: roll-pitch-yaw about x, y', z''
 ``construct_trans_a`` (`cregistration.hpp:2740-2764`) and the quaternion
 variance-propagation Jacobian ``get_quat_euler_jacobi``
 (`cregistration.hpp:2795-2836`).
+
+Every function takes leading batch dimensions; the small products of
+:func:`inverse`, :func:`transform_points`, :func:`rotate_vectors` and
+:func:`orthonormalize` go through :mod:`mulls_tpu_torch.core.batch`, so a
+batch entry gets the bits of its call alone.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mulls_tpu_torch.core.batch import matmul, matvec, rotate
+
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    # a slice, not one element: a scalar stored into one element of a
+    # card's tensor is a host-to-device copy, which syncs
+    bottom[..., 3:] = 1.0
     return bottom
 
 
@@ -54,19 +63,18 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    ti = -torch.einsum("...ij,...j->...i", Rt, t)
+    ti = -matvec(Rt, t)
     top = torch.cat([Rt, ti[..., :, None]], dim=-1)
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def transform_points(T: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
     """Apply [4,4] (or batched) SE(3) to [..., N, 3] points."""
-    return (torch.einsum("...ij,...nj->...ni", T[..., :3, :3], xyz)
-            + T[..., None, :3, 3])
+    return rotate(T[..., :3, :3], xyz) + T[..., None, :3, 3]
 
 
 def rotate_vectors(T: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], vec)
+    return rotate(T[..., :3, :3], vec)
 
 
 def rotation_angle(R: torch.Tensor) -> torch.Tensor:
@@ -83,10 +91,10 @@ def translation_norm(T: torch.Tensor) -> torch.Tensor:
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation onto SO(3) (SVD), keeping det=+1."""
     u, _, vt = torch.linalg.svd(R)
-    d = torch.linalg.det(u @ vt)
+    d = torch.linalg.det(matmul(u, vt))
     s = torch.ones(R.shape[:-2] + (3,), dtype=R.dtype, device=R.device)
     s[..., 2] = d
-    return (u * s[..., None, :]) @ vt
+    return matmul(u * s[..., None, :], vt)
 
 
 def quat_euler_jacobi(euler: torch.Tensor) -> torch.Tensor:

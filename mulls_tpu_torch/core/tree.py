@@ -35,5 +35,9 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_where(cond: torch.Tensor, a, b):
-    """Leafwise ``torch.where(cond, a, b)`` for a 0-d bool ``cond``."""
-    return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+    """Leafwise ``torch.where(cond, a, b)`` for a bool ``cond`` over the
+    leaves' leading (batch) dimensions: 0-d for one sequence."""
+    def pick(x, y):
+        c = cond.reshape(cond.shape + (1,) * (x.dim() - cond.dim()))
+        return torch.where(c, x, y)
+    return tree_map(pick, a, b)

@@ -91,7 +91,7 @@ __device__ __forceinline__ void store_valid(float4* tile, uint8_t m,
   if (t < len) tile[t].w = m ? 1.0f : 0.0f;
 }
 
-inline int blocks_for(int n, int threads) {
+__host__ __device__ inline int blocks_for(int n, int threads) {
   return (n + threads - 1) / threads;
 }
 

@@ -26,6 +26,10 @@
 // * A lane tests kSteps = 4 points, then the warp votes once (__any_sync):
 //   only when one of its lanes hit does it add rows, and a hit adds the
 //   row; there is no 0/1 factor folded into C FMAs.
+// * Batches: a grid axis (blockIdx.y) takes the entry of a batch of
+//   problems of one shape (the S sequences of a batched step); each entry
+//   offsets its pointers and keeps its own tiles, chunks, scratch rows and
+//   arrival counters, so it adds in the order of its launch alone.
 // * Deterministic, exact merge: the 4 lanes are reduced by shuffles in a
 //   fixed tree, each chunk writes its partial sums to a [chunks, Q, C]
 //   scratch, and the last block of a query tile to arrive (an atomic
@@ -65,6 +69,22 @@ moments_kernel(const float* __restrict__ q, const float* __restrict__ r2,
                unsigned int* __restrict__ arrivals, float* __restrict__ sums,
                float* __restrict__ csums) {
   constexpr int kStride = C % 2 == 1 ? C : C + 1;
+  {  // this block's batch entry
+    const size_t e = blockIdx.y;
+    const size_t eq = e * n_q, ep = e * n_p;
+    const size_t plane = eq * C * n_chunks;
+    q += 3 * eq;
+    r2 += eq;
+    if (kClose) close_r2 += eq;
+    p += 3 * ep;
+    p_mask += ep;
+    feat += ep * C;
+    partial += plane;
+    if (kClose) cpartial += plane;
+    arrivals += e * mulls::blocks_for(n_q, kTileQ);
+    sums += eq * C;
+    if (kClose) csums += eq * C;
+  }
   __shared__ float4 tile[2][kStage];
   __shared__ float rows[2][kStage * kStride];
   __shared__ bool last;
@@ -226,11 +246,11 @@ moments_kernel(const float* __restrict__ q, const float* __restrict__ r2,
 template <int C>
 void launch(const float* q, const float* r2, const float* close_r2,
             const float* p, const uint8_t* p_mask, const float* feat,
-            int n_q, int n_p, float* partial, float* cpartial,
+            int n_q, int n_p, int n_seq, float* partial, float* cpartial,
             unsigned int* arrivals, float* sums, float* csums,
             cudaStream_t stream) {
   const int n_chunks = n_p > 0 ? mulls::blocks_for(n_p, kChunk) : 1;
-  const int blocks = mulls::blocks_for(n_q, kTileQ) * n_chunks;
+  const dim3 blocks(mulls::blocks_for(n_q, kTileQ) * n_chunks, n_seq);
   if (close_r2 != nullptr) {
     moments_kernel<C, true><<<blocks, kThreads, 0, stream>>>(
         q, r2, close_r2, p, p_mask, feat, n_q, n_p, n_chunks, partial,
@@ -252,22 +272,28 @@ extern "C" void mulls_moments_geometry(int* max_c, int* tile_q, int* chunk) {
 }
 
 // close_r2 == nullptr selects the variant without close sums (csums and
-// cpartial are then not touched).  partial / cpartial hold
-// max(1, ceil(n_p / chunk)) x n_q x n_c floats; arrivals holds
-// ceil(n_q / tile_q) zeros, and the launch leaves them so.  Returns
-// cudaErrorInvalidValue for C outside [1, kMaxC].
+// cpartial are then not touched).  n_seq problems of one shape lie one
+// after another in every array (a batch: q [n_seq, n_q, 3] ...).  partial
+// / cpartial hold n_seq x max(1, ceil(n_p / chunk)) x n_q x n_c floats;
+// arrivals holds n_seq x ceil(n_q / tile_q) zeros, and the launch leaves
+// them so.  Returns cudaErrorInvalidValue for C outside [1, kMaxC] or a
+// batch outside [1, 65535].
 extern "C" int mulls_moments(const float* q, const float* r2,
                              const float* close_r2, const float* p,
                              const uint8_t* p_mask, const float* feat,
-                             int n_q, int n_p, int n_c, float* partial,
-                             float* cpartial, unsigned int* arrivals,
-                             float* sums, float* csums, void* stream) {
+                             int n_q, int n_p, int n_c, int n_seq,
+                             float* partial, float* cpartial,
+                             unsigned int* arrivals, float* sums,
+                             float* csums, void* stream) {
+  if (n_seq < 1 || n_seq > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_q == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_c) {
 #define MULLS_MOMENTS_CASE(C)                                             \
   case C:                                                                 \
-    launch<C>(q, r2, close_r2, p, p_mask, feat, n_q, n_p, partial,        \
+    launch<C>(q, r2, close_r2, p, p_mask, feat, n_q, n_p, n_seq, partial, \
               cpartial, arrivals, sums, csums, s);                        \
     break;
     MULLS_MOMENTS_CASE(1)

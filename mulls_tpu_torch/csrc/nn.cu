@@ -15,7 +15,12 @@
 // Design:
 // * One launch serves a group of up to kMaxProblems problems, passed by
 //   value as a __grid_constant__ struct of pointers, sizes and block
-//   prefixes; a block finds its problem by scanning the prefixes.
+//   prefixes (3.5 KB at 48 problems, inside the 4 KB of kernel
+//   parameters); a block finds its problem by scanning the prefixes.  The
+//   S sequences of a batched ICP iteration are S problems a class: five
+//   classes of eight sequences are 40 problems, one launch.  A problem's
+//   blocks, tiles and merge do not depend on the rest of the group, so
+//   its result equals its launch alone bit for bit.
 // * The grid is query tiles x support chunks: a block takes kTileQ = 128
 //   queries against kChunk = 1024 support points, so the five ICP classes
 //   give 134 blocks.  Its 256 threads are 32 query groups x 8 support
@@ -46,7 +51,7 @@
 
 namespace {
 
-constexpr int kMaxProblems = 8;
+constexpr int kMaxProblems = 48;
 constexpr int kThreads = 256;
 constexpr int kLanes = 8;                           // support lanes per query
 constexpr int kGroups = kThreads / kLanes;          // 32 query groups
@@ -86,11 +91,16 @@ __global__ void __launch_bounds__(kThreads)
 nn_grouped_kernel(const __grid_constant__ NnGroup g) {
   __shared__ float4 tile[2][kStage];
   __shared__ bool last;
-  int pi = 0;
-  while (pi + 1 < g.n &&
-         static_cast<int>(blockIdx.x) >= g.prob[pi + 1].block_start) {
-    ++pi;
+  int lo = 0, hi = g.n - 1;  // the last problem starting at or before us
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (static_cast<int>(blockIdx.x) >= g.prob[mid].block_start) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
   }
+  const int pi = lo;
   const NnProblem& pr = g.prob[pi];
   const int local = static_cast<int>(blockIdx.x) - pr.block_start;
   const int tile_i = local / pr.n_chunks;

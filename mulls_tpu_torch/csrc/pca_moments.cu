@@ -39,6 +39,11 @@
 //   the sums, so a miss costs the distance and the compare.  e is formed as
 //   p - q, as the plain version forms it (bit for bit the negated q - p of
 //   the distance).
+// * Batches: a grid axis (blockIdx.y) takes the entry of a batch of
+//   problems of one shape (the S sequences of a batched step), with the
+//   chunk chosen from one entry's sizes; each entry offsets its pointers
+//   and keeps its own scratch rows and arrival counters, so it adds in the
+//   order of its launch alone.
 // * Deterministic merge: the 4 lanes are reduced by shuffles in a fixed
 //   tree, each chunk writes its ten sums per query to a [chunks, Q, 10]
 //   scratch, and the last block of a query tile to arrive (an atomic counter
@@ -76,6 +81,19 @@ pca_moments_kernel(const float* __restrict__ q, const float* __restrict__ r2,
                    unsigned int* __restrict__ arrivals,
                    float* __restrict__ count, float* __restrict__ s1,
                    float* __restrict__ s2) {
+  {  // this block's batch entry (blockIdx.y): its own rows and scratch
+    const size_t e = blockIdx.y;
+    const size_t eq = e * n_q, ep = e * n_p;
+    q += 3 * eq;
+    r2 += eq;
+    p += 3 * ep;
+    p_mask += ep;
+    partial += eq * kTerms * n_chunks;
+    arrivals += e * mulls::blocks_for(n_q, kTileQ);
+    count += eq;
+    s1 += 3 * eq;
+    s2 += 6 * eq;
+  }
   __shared__ float4 tile[2][kStage];
   __shared__ bool last;
   const int tile_i = blockIdx.x / n_chunks;
@@ -231,21 +249,25 @@ extern "C" void mulls_pca_moments_geometry(int* tile_q, int* chunk,
 }
 
 // chunk: support points per block, a positive multiple of 16 (4 points a
-// lane per vote).  partial holds max(1, ceil(n_p / chunk)) x n_q x 10
-// floats; arrivals holds ceil(n_q / tile_q) zeros, and the launch leaves
-// them so.  count [n_q], s1 [n_q, 3], s2 [n_q, 6].  Returns
-// cudaErrorInvalidValue for another chunk.
+// lane per vote).  n_seq problems of one shape lie one after another in
+// every array (a batch: q [n_seq, n_q, 3] ...), each computed as its launch
+// alone would.  partial holds n_seq x max(1, ceil(n_p / chunk)) x n_q x 10
+// floats; arrivals holds n_seq x ceil(n_q / tile_q) zeros, and the launch
+// leaves them so.  count [n_seq, n_q], s1 [n_seq, n_q, 3], s2 [n_seq, n_q,
+// 6].  Returns cudaErrorInvalidValue for another chunk or a batch outside
+// [1, 65535].
 extern "C" int mulls_pca_moments(const float* q, const float* r2,
                                  const float* p, const uint8_t* p_mask,
-                                 int n_q, int n_p, int chunk, float* partial,
-                                 unsigned int* arrivals, float* count,
-                                 float* s1, float* s2, void* stream) {
-  if (chunk <= 0 || chunk % kVote != 0) {
+                                 int n_q, int n_p, int chunk, int n_seq,
+                                 float* partial, unsigned int* arrivals,
+                                 float* count, float* s1, float* s2,
+                                 void* stream) {
+  if (chunk <= 0 || chunk % kVote != 0 || n_seq < 1 || n_seq > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_q == 0) return static_cast<int>(cudaGetLastError());
   const int n_chunks = n_p > 0 ? mulls::blocks_for(n_p, chunk) : 1;
-  const int blocks = mulls::blocks_for(n_q, kTileQ) * n_chunks;
+  const dim3 blocks(mulls::blocks_for(n_q, kTileQ) * n_chunks, n_seq);
   pca_moments_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       q, r2, p, p_mask, n_q, n_p, chunk, n_chunks, partial, arrivals, count,

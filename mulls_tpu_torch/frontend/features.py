@@ -9,7 +9,10 @@
 
 Shapes are static and every cloud is a fixed-capacity masked tensor; the
 draws follow the reference's key tree (``draws.split(16)``, one child per
-site) so a replayed key tree reproduces its numbers.
+site) so a replayed key tree reproduces its numbers.  A raw cloud with a
+leading batch dimension (``[S, N, 3]``, with :class:`StackedDraws`) is S
+frames extracted as one: every operation and kernel runs once for all S,
+and each frame gets the features of its call alone.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import math
 import torch
 
 from mulls_tpu_torch.config import MullsConfig
+from mulls_tpu_torch.core.batch import put, take
 from mulls_tpu_torch.core.cloud import (FeatureCloud, FeatureFrame, RawCloud,
                                         VertexDescriptors,
                                         compact_topk_random,
@@ -37,9 +41,9 @@ def _gather_cloud(xyz, normal, intensity, strength, height, ts, mask,
     idx, valid = compact_topk_random(mask, capacity,
                                      draws.uniform(mask.shape))
     return FeatureCloud(
-        xyz=xyz[idx], normal=normal[idx], intensity=intensity[idx],
-        strength=strength[idx], height=height[idx], ts_ratio=ts[idx],
-        mask=valid)
+        xyz=take(xyz, idx), normal=take(normal, idx),
+        intensity=take(intensity, idx), strength=take(strength, idx),
+        height=take(height, idx), ts_ratio=take(ts, idx), mask=valid)
 
 
 def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
@@ -49,6 +53,7 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     fcfg = cfg.feature
     shapes = cfg.shapes
     dev = raw.xyz.device
+    lead = tuple(raw.xyz.shape[:-2])
     keys = draws.split(16)
 
     # --- pre-filtering (`mulls_slam.cpp:404-407`, `cfilter.hpp:2331-2343`)
@@ -84,28 +89,28 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     # (`cfilter.hpp:2367-2374`)
     is_unground = g.is_unground
     if pre.apply_roi_filter:
-        in_band = ((raw.xyz[:, 1] > pre.roi_min_y)
-                   & (raw.xyz[:, 1] < pre.roi_max_y))
+        in_band = ((raw.xyz[..., 1] > pre.roi_min_y)
+                   & (raw.xyz[..., 1] < pre.roi_max_y))
         is_unground = is_unground & ~in_band
 
     # --- compact the unground set to the PCA budget
     ug_idx, ug_valid = compact_topk_random(
         is_unground, shapes.n_unground, keys[1].uniform(is_unground.shape))
-    ug_xyz = raw.xyz[ug_idx]
-    ug_int = raw.intensity[ug_idx]
-    ug_ts = raw.ts_ratio[ug_idx]
-    ug_h = g.height[ug_idx]
+    ug_xyz = take(raw.xyz, ug_idx)
+    ug_int = take(raw.intensity, ug_idx)
+    ug_ts = take(raw.ts_ratio, ug_idx)
+    ug_h = take(g.height, ug_idx)
 
     # --- neighborhood PCA (`pca.hpp:294-354`) on the first n_q rows of the
     # random compaction (the reference's pca_down_rate query stride), in
     # Morton order
     n_q = shapes.n_unground // max(fcfg.pca_down_rate, 1)
-    qo = pca_ops.morton_order(ug_xyz[:n_q])
-    q_xyz = ug_xyz[:n_q][qo]
-    q_valid = ug_valid[:n_q][qo]
-    q_int = ug_int[:n_q][qo]
-    q_ts = ug_ts[:n_q][qo]
-    q_h = ug_h[:n_q][qo]
+    qo = pca_ops.morton_order(ug_xyz[..., :n_q, :])
+    q_xyz = take(ug_xyz[..., :n_q, :], qo)
+    q_valid = take(ug_valid[..., :n_q], qo)
+    q_int = take(ug_int[..., :n_q], qo)
+    q_ts = take(ug_ts[..., :n_q], qo)
+    q_h = take(ug_h[..., :n_q], qo)
     feats = pca_ops.pca_features(
         q_xyz, q_valid, ug_xyz, ug_valid,
         radius=fcfg.cloud_pca_neigh_r, min_k=fcfg.cloud_pca_neigh_k_min,
@@ -118,9 +123,9 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     sin_facade = math.sin(math.radians(fcfg.facade_normal_ang))
     sin_roof = math.sin(math.radians(fcfg.roof_normal_ang))
 
-    pz = torch.abs(feats.principal[:, 2])
-    nz = torch.abs(feats.normal[:, 2])
-    z = q_xyz[:, 2]
+    pz = torch.abs(feats.principal[..., 2])
+    nz = torch.abs(feats.normal[..., 2])
+    z = q_xyz[..., 2]
     linear = feats.valid & (feats.linearity > fcfg.linearity_thre)
     planar = feats.valid & ~linear & (feats.planarity > fcfg.planarity_thre)
     is_pillar = linear & (pz > sin_pillar)
@@ -130,8 +135,8 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
 
     # --- semantic mask refinement (`cfilter.hpp:2508-2608`)
     if semantic:
-        ug_label = raw.label[ug_idx][:n_q][qo]
-        beyond = (torch.sum(q_xyz[:, :2] ** 2, -1)
+        ug_label = take(take(raw.label, ug_idx)[..., :n_q], qo)
+        beyond = (torch.sum(q_xyz[..., :2] ** 2, -1)
                   > fcfg.semantic_labeled_radius ** 2)
 
         def lab_in(*ids):
@@ -148,46 +153,49 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     # --- vertex candidates + NCC descriptor pass
     # (`cfilter.hpp:2176-2226`, `encode_stable_points` :1071-1181)
     curv_gate = feats.valid & (feats.curvature > 0.3 * fcfg.curvature_thre)
-    kv = min(shapes.n_vertex_full, curv_gate.shape[0])
+    kv = min(shapes.n_vertex_full, curv_gate.shape[-1])
     cand_idx, cand_valid = compact_topk_score(curv_gate, feats.curvature, kv)
     if kv < shapes.n_vertex_full:
         pad = shapes.n_vertex_full - kv
         cand_idx = torch.cat([cand_idx, torch.zeros(
-            (pad,), dtype=cand_idx.dtype, device=dev)])
+            (*lead, pad), dtype=cand_idx.dtype, device=dev)], -1)
         cand_valid = torch.cat([cand_valid, torch.zeros(
-            (pad,), dtype=cand_valid.dtype, device=dev)])
+            (*lead, pad), dtype=cand_valid.dtype, device=dev)], -1)
     # support classes over the FULL unground cloud: unqueried rows keep
     # class 0 (a zero one-hot row)
     onehot = torch.nn.functional.one_hot(class_id.clamp(min=1) - 1, 4).to(
-        torch.float32) * (class_id > 0)[:, None]
-    onehot = onehot * q_valid[:, None]
-    onehot_full = torch.zeros((shapes.n_unground, 4), dtype=torch.float32,
-                              device=dev)
-    onehot_full[qo] = onehot
-    r_desc = torch.full((shapes.n_vertex_full,), fcfg.cloud_pca_neigh_r,
-                        dtype=torch.float32, device=dev)
+        torch.float32) * (class_id > 0)[..., None]
+    onehot = onehot * q_valid[..., None]
+    # the query rows in the unground cloud's order; rows past n_q stay 0
+    onehot_full = torch.zeros((*lead, shapes.n_unground, 4),
+                              dtype=torch.float32, device=dev)
+    onehot_full = put(onehot_full, qo, onehot)
+    r_desc = torch.full((*lead, shapes.n_vertex_full),
+                        fcfg.cloud_pca_neigh_r, dtype=torch.float32,
+                        device=dev)
+    cand_xyz = take(q_xyz, cand_idx)
     if fcfg.use_distance_adaptive_pca:
-        dq = torch.linalg.norm(q_xyz[cand_idx], dim=-1)
+        dq = torch.linalg.norm(cand_xyz, dim=-1)
         r_desc = r_desc * torch.sqrt(torch.clamp(dq / fcfg.unit_dist,
                                                  min=1.0))
     m2 = nbr.knn_class_counts(
-        q_xyz[cand_idx], cand_valid, ug_xyz, ug_valid, r_desc,
+        cand_xyz, cand_valid, ug_xyz, ug_valid, r_desc,
         k=fcfg.cloud_pca_neigh_k, class_onehot=onehot_full,
         p_intensity=ug_int, close_r2=0.64 * fcfg.cloud_pca_neigh_r ** 2)
     cand_count = torch.clamp(m2["count"], min=1.0)
     close_counts = m2["close_counts"]  # pillar/beam/facade/roof
     far_counts = m2["far_counts"]
     class_counts = close_counts + far_counts
-    geo_count = torch.sum(class_counts, dim=1)
+    geo_count = torch.sum(class_counts, dim=-1)
     mean_int = m2["int_sum"] / cand_count
 
     # vertex-method-2: unclassified high-curvature points whose neighborhood
     # is rich in feature points get promoted to pillar/beam
     vertex_ratio_thre = fcfg.feature_pts_ratio_guess / fcfg.pca_down_rate
-    cand_curv = feats.curvature[cand_idx]
-    cand_class = class_id[cand_idx]
-    cand_pz = torch.abs(feats.principal[cand_idx, 2])
-    cand_z = q_xyz[cand_idx, 2]
+    cand_curv = take(feats.curvature, cand_idx)
+    cand_class = take(class_id, cand_idx)
+    cand_pz = torch.abs(take(feats.principal, cand_idx)[..., 2])
+    cand_z = cand_xyz[..., 2]
     promoted = (cand_valid & (cand_class == 0)
                 & (cand_curv > fcfg.curvature_thre)
                 & (geo_count / cand_count > vertex_ratio_thre))
@@ -195,10 +203,10 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     promote_beam = (promoted & (cand_pz < sin_beam)
                     & (cand_z < fcfg.beam_max_height))
     if fcfg.extract_vertex_points_method == 2:
-        is_pillar = is_pillar.clone()
-        is_pillar[cand_idx] = is_pillar[cand_idx] | promote_pillar
-        is_beam = is_beam.clone()
-        is_beam[cand_idx] = is_beam[cand_idx] | promote_beam
+        is_pillar = put(is_pillar, cand_idx,
+                        take(is_pillar, cand_idx) | promote_pillar)
+        is_beam = put(is_beam, cand_idx, take(is_beam, cand_idx)
+                      | promote_beam)
 
     # stable keypoints (the vertex cloud): enough featured neighbors
     min_neighbor_feature_pts = int(
@@ -213,10 +221,10 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     strength = torch.where(is_pillar | is_beam, feats.linearity,
                            torch.where(is_facade | is_roof, feats.planarity,
                                        0.0))
-    strength[cand_idx] = torch.where(promoted, 5.0 * cand_curv,
-                                     strength[cand_idx])
+    strength = put(strength, cand_idx, torch.where(
+        promoted, 5.0 * cand_curv, take(strength, cand_idx)))
     # direction vector: principal for linear, plane normal for planar
-    direction = torch.where((is_pillar | is_beam)[:, None], feats.principal,
+    direction = torch.where((is_pillar | is_beam)[..., None], feats.principal,
                             feats.normal)
 
     # --- the full per-class clouds (budgeted compaction) from the
@@ -235,15 +243,15 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     is_ground = g.is_ground
     if semantic:
         gl = raw.label
-        g_ok = (torch.sum(raw.xyz[:, :2] ** 2, -1)
+        g_ok = (torch.sum(raw.xyz[..., :2] ** 2, -1)
                 > fcfg.semantic_labeled_radius ** 2)
         for i in (40, 44, 48, 49, 60, 72):
             g_ok = g_ok | (gl == i)
         is_ground = is_ground & g_ok
     gr_idx, gr_valid = compact_topk_random(
         is_ground, shapes.n_ground_full, keys[6].uniform(is_ground.shape))
-    gr_xyz = raw.xyz[gr_idx]
-    gr_normal = g.normal[gr_idx]
+    gr_xyz = take(raw.xyz, gr_idx)
+    gr_normal = take(g.normal, gr_idx)
     # ground normal methods 1/2 (`cfilter.hpp:1860-1925`): radius PCA on the
     # compacted ground cloud (method 0 = (0,0,1), method 3 = per-grid plane,
     # both handled inside the ground filter)
@@ -253,16 +261,16 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
             radius=cfg.ground.normal_estimation_radius,
             min_k=fcfg.cloud_pca_neigh_k_min, distance_adaptive=False,
             unit_dist=fcfg.unit_dist)
-        nrm = gfeats.normal * torch.where(gfeats.normal[:, 2:3] < 0, -1.0,
+        nrm = gfeats.normal * torch.where(gfeats.normal[..., 2:3] < 0, -1.0,
                                           1.0)
         up = torch.zeros_like(nrm)
-        up[:, 2] = 1.0
-        gr_normal = torch.where(gfeats.valid[:, None], nrm, up)
-    g_int = raw.intensity[gr_idx]
+        up[..., 2] = 1.0
+        gr_normal = torch.where(gfeats.valid[..., None], nrm, up)
+    g_int = take(raw.intensity, gr_idx)
     full["ground"] = FeatureCloud(
         xyz=gr_xyz, normal=gr_normal, intensity=g_int,
         strength=torch.zeros_like(g_int), height=torch.zeros_like(g_int),
-        ts_ratio=raw.ts_ratio[gr_idx], mask=gr_valid)
+        ts_ratio=take(raw.ts_ratio, gr_idx), mask=gr_valid)
 
     # vertex cloud: stable keypoints, curvature saliency; a zero keep budget
     # keeps a capacity-1 fully-masked cloud
@@ -270,16 +278,19 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
                                           max(fcfg.vertex_keep_num, 1))
     if fcfg.vertex_keep_num <= 0:
         vx_valid = torch.zeros_like(vx_valid)
-    gi = cand_idx[vx_idx]  # indices into the (morton-ordered) query subset
+    gi = take(cand_idx, vx_idx)  # rows of the (morton-ordered) queries
+    v_curv = take(feats.curvature, gi)
+    v_h = take(q_h, gi)
+    v_int = take(mean_int, vx_idx)
     full["vertex"] = FeatureCloud(
-        xyz=q_xyz[gi], normal=feats.principal[gi],
-        intensity=mean_int[vx_idx], strength=5.0 * feats.curvature[gi],
-        height=q_h[gi], ts_ratio=q_ts[gi], mask=vx_valid)
-    pct = lambda c: torch.floor(100.0 * c / cand_count[:, None])
+        xyz=take(q_xyz, gi), normal=take(feats.principal, gi),
+        intensity=v_int, strength=5.0 * v_curv,
+        height=v_h, ts_ratio=take(q_ts, gi), mask=vx_valid)
+    pct = lambda c: torch.floor(100.0 * c / cand_count[..., None])
     desc_vec = torch.cat([
-        pct(close_counts)[vx_idx], pct(far_counts)[vx_idx],
-        mean_int[vx_idx, None], (feats.curvature[gi] * 100.0)[:, None],
-        (q_h[gi] * 30.0)[:, None]], dim=1)
+        take(pct(close_counts), vx_idx), take(pct(far_counts), vx_idx),
+        v_int[..., None], (v_curv * 100.0)[..., None],
+        (v_h * 30.0)[..., None]], dim=-1)
     descriptors = VertexDescriptors(vec=desc_vec, mask=vx_valid)
 
     # --- NMS sharpening + fixed budgets -> down clouds
@@ -324,7 +335,7 @@ def extract_features(raw: RawCloud, cfg: MullsConfig, draws: Draws,
     down["ground"] = full["ground"].gather(gd_idx, gd_valid)
     down["vertex"] = full["vertex"]
 
-    bbx_min = masked_min(raw.xyz, mask[:, None], dim=0)
-    bbx_max = masked_max(raw.xyz, mask[:, None], dim=0)
+    bbx_min = masked_min(raw.xyz, mask[..., None], dim=-2)
+    bbx_max = masked_max(raw.xyz, mask[..., None], dim=-2)
     return FeatureFrame(full=full, down=down, descriptors=descriptors,
                         bbx_min=bbx_min, bbx_max=bbx_max)

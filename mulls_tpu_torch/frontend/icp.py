@@ -31,6 +31,8 @@ import torch
 
 from mulls_tpu_torch.config import RegConfig
 from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.core.batch import (expand_like, fsum, matmul, matvec,
+                                        offsets, take, where)
 from mulls_tpu_torch.core.cloud import FeatureCloud, masked_max, masked_min
 from mulls_tpu_torch.core.tree import Struct
 from mulls_tpu_torch.ops import kernels
@@ -48,8 +50,8 @@ _INT32_MAX = (1 << 31) - 1
 
 @dataclass
 class RegResult(Struct):
-    transform: torch.Tensor  # [4,4] source -> target
-    information: torch.Tensor  # [6,6] (tx,ty,tz,qx,qy,qz) parameterization
+    transform: torch.Tensor  # [...,4,4] source -> target
+    information: torch.Tensor  # [...,6,6] (tx,ty,tz,qx,qy,qz) parameters
     sigma: torch.Tensor  # posterior unit-weight std (m)
     confidence: torch.Tensor  # necessary-corr ratio
     process_code: torch.Tensor  # 1 ok | -1 diverged | -2 few corr | -3 sigma
@@ -57,20 +59,23 @@ class RegResult(Struct):
 
     @staticmethod
     def not_run(T: torch.Tensor) -> "RegResult":
-        """Structure-matching placeholder (code 0 = not run)."""
+        """Structure-matching placeholder (code 0 = not run), one per batch
+        entry of ``T`` [..., 4, 4]."""
         dev = T.device
+        lead = tuple(T.shape[:-2])
         return RegResult(
-            transform=T, information=torch.eye(6, device=dev),
-            sigma=torch.tensor(1.0, device=dev),
-            confidence=torch.tensor(0.0, device=dev),
-            process_code=torch.tensor(0, dtype=torch.int32, device=dev),
-            iterations=torch.tensor(0, dtype=torch.int32, device=dev))
+            transform=T,
+            information=torch.eye(6, device=dev).expand(*lead, 6, 6).clone(),
+            sigma=torch.ones(lead, device=dev),
+            confidence=torch.zeros(lead, device=dev),
+            process_code=torch.zeros(lead, dtype=torch.int32, device=dev),
+            iterations=torch.zeros(lead, dtype=torch.int32, device=dev))
 
 
 class _Corr(NamedTuple):
-    t_idx: torch.Tensor  # [S] int64 target index of the 1-NN
-    valid: torch.Tensor  # [S] bool
-    sqdist: torch.Tensor  # [S]
+    t_idx: torch.Tensor  # [..., S] int64 target index of the 1-NN
+    valid: torch.Tensor  # [..., S] bool
+    sqdist: torch.Tensor  # [..., S]
 
 
 def _find_corres(found, s_xyz, s_dir, s_mask, target: FeatureCloud,
@@ -78,53 +83,75 @@ def _find_corres(found, s_xyz, s_dir, s_mask, target: FeatureCloud,
                  duplicate_check: bool = True) -> _Corr:
     """determine_corres parity (`cregistration.hpp:1701-1835`) on the
     candidates ``found = (idx, d2)`` of the 1-NN or normal-shooting search
-    of ``s_xyz`` in ``target``."""
+    of ``s_xyz`` in ``target``; ``dis_thre`` is a number or one per batch
+    entry."""
     t_cap = target.capacity
     idx, d2 = found
     idx = idx.to(torch.int64)
-    cand = s_mask & (d2 <= (2.5 * dis_thre) ** 2)
+    thre = expand_like(dis_thre, d2)
+    cand = s_mask & (d2 <= (2.5 * thre) ** 2)
     if duplicate_check:
         # one source per target: keep the minimum-distance source (segment
-        # min of the distance, then of the source ordinal as tie-break)
-        n = s_xyz.shape[0]
+        # min of the distance, then of the source ordinal as tie-break),
+        # each batch entry in its own table
+        n = s_xyz.shape[-2]
         dev = s_xyz.device
-        seg = torch.where(cand, idx, t_cap)
-        best_d2 = torch.full((t_cap + 1,), float("inf"), device=dev)
-        best_d2.scatter_reduce_(0, seg, torch.where(cand, d2, float("inf")),
+        lead = tuple(idx.shape[:-1])
+        off = offsets(lead, t_cap + 1, dev) if lead else 0
+        seg = torch.where(cand, idx, t_cap) + off
+        n_tab = math.prod(lead) * (t_cap + 1)
+        best_d2 = torch.full((n_tab,), float("inf"), device=dev)
+        best_d2.scatter_reduce_(0, seg.reshape(-1),
+                                torch.where(cand, d2, float("inf")).reshape(-1),
                                 "amin", include_self=False)
-        tied = cand & (d2 <= best_d2[idx])
+        tied = cand & (d2 <= best_d2[idx + off])
         ordinal = torch.arange(n, dtype=torch.int64, device=dev)
-        best_ord = torch.full((t_cap + 1,), _INT32_MAX, dtype=torch.int64,
+        best_ord = torch.full((n_tab,), _INT32_MAX, dtype=torch.int64,
                               device=dev)
-        best_ord.scatter_reduce_(0, torch.where(tied, idx, t_cap),
-                                 torch.where(tied, ordinal, 1 << 30),
-                                 "amin", include_self=False)
-        cand = tied & (best_ord[idx] == ordinal)
-    keep = cand & (d2 <= dis_thre ** 2)
+        best_ord.scatter_reduce_(
+            0, (torch.where(tied, idx, t_cap) + off).reshape(-1),
+            torch.where(tied, ordinal, 1 << 30).reshape(-1), "amin",
+            include_self=False)
+        cand = tied & (best_ord[idx + off] == ordinal)
+    keep = cand & (d2 <= thre ** 2)
     if normal_check:
-        tn = target.normal[idx]
+        tn = take(target.normal, idx)
         cosang = torch.abs(torch.sum(s_dir * tn, dim=-1))
         keep = keep & (cosang >= cos_bearing)
     return _Corr(t_idx=idx, valid=keep, sqdist=d2)
 
 
+def _normal_rows(J, rhs, w):
+    """``[J^T W J | J^T W rhs]`` [..., 6, 7] for rows ``J`` [..., N, (k,)
+    6] with right-hand sides ``rhs`` [..., N, (k)] and weights ``w`` [...,
+    N]: every product summed over the rows in :func:`fsum`'s fixed order,
+    so a batch entry gets the bits of its solve alone."""
+    M = torch.cat([J, rhs[..., None]], -1)
+    Jw = J * expand_like(w, J) if J.dim() == w.dim() + 1 else \
+        J * w[..., None, None]
+    P = Jw[..., :, None] * M[..., None, :]  # [..., N, (k,) 6, 7]
+    if J.dim() == w.dim() + 2:  # k rows a point: sum the N*k rows
+        P = P.reshape(*P.shape[:-4], -1, 6, 7)
+    return fsum(P, dim=-3)
+
+
 def _pt2pl_system(p, q, nt, w):
     """J = [n | p x n-ish], rhs d = n.(q-p) (`cregistration.hpp:2066-2156`)."""
-    a = nt[:, 2] * p[:, 1] - nt[:, 1] * p[:, 2]
-    b = nt[:, 0] * p[:, 2] - nt[:, 2] * p[:, 0]
-    c = nt[:, 1] * p[:, 0] - nt[:, 0] * p[:, 1]
-    J = torch.stack([nt[:, 0], nt[:, 1], nt[:, 2], a, b, c], dim=-1)  # [N,6]
+    a = nt[..., 2] * p[..., 1] - nt[..., 1] * p[..., 2]
+    b = nt[..., 0] * p[..., 2] - nt[..., 2] * p[..., 0]
+    c = nt[..., 1] * p[..., 0] - nt[..., 0] * p[..., 1]
+    J = torch.stack([nt[..., 0], nt[..., 1], nt[..., 2], a, b, c],
+                    dim=-1)  # [..., N, 6]
     d = torch.sum(nt * (q - p), dim=-1)
-    ATA = (J * w[:, None]).T @ J
-    ATb = (J * w[:, None]).T @ d
-    return ATA, ATb, J, d
+    sys = _normal_rows(J, d, w)
+    return sys[..., :6], sys[..., 6], J, d
 
 
 def _pt2li_rows(p, v):
-    """A [N,3,6] for the cross-product point-to-line residual
+    """A [..., N,3,6] for the cross-product point-to-line residual
     (`cregistration.hpp:2195-2224`)."""
-    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
-    vx, vy, vz = v[:, 0], v[:, 1], v[:, 2]
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
     zero = torch.zeros_like(px)
     return torch.stack([
         torch.stack([zero, -vz, vy, vy * py + vz * pz, -vy * px, -vz * px],
@@ -133,33 +160,31 @@ def _pt2li_rows(p, v):
                     -1),
         torch.stack([-vy, vx, zero, -vx * pz, -vy * pz, vx * px + vy * py],
                     -1),
-    ], dim=1)
+    ], dim=-2)
 
 
 def _pt2li_rhs(p, q, v):
     d = p - q
-    bx = -v[:, 1] * d[:, 2] + v[:, 2] * d[:, 1]
-    by = -v[:, 2] * d[:, 0] + v[:, 0] * d[:, 2]
-    bz = -v[:, 0] * d[:, 1] + v[:, 1] * d[:, 0]
+    bx = -v[..., 1] * d[..., 2] + v[..., 2] * d[..., 1]
+    by = -v[..., 2] * d[..., 0] + v[..., 0] * d[..., 2]
+    bz = -v[..., 0] * d[..., 1] + v[..., 1] * d[..., 0]
     return torch.stack([bx, by, bz], dim=-1)
 
 
 def _pt2pt_rows(p):
-    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
     zero = torch.zeros_like(px)
     one = torch.ones_like(px)
     return torch.stack([
         torch.stack([one, zero, zero, zero, pz, -py], -1),
         torch.stack([zero, one, zero, -pz, zero, px], -1),
         torch.stack([zero, zero, one, py, -px, zero], -1),
-    ], dim=1)
+    ], dim=-2)
 
 
 def _rows_system(A, b, w):
-    Aw = A * w[:, None, None]
-    ATA = torch.einsum("nki,nkj->ij", Aw, A)
-    ATb = torch.einsum("nki,nk->i", Aw, b)
-    return ATA, ATb
+    sys = _normal_rows(A, b, w)
+    return sys[..., :6], sys[..., 6]
 
 
 def _weight_by_dist_adaptive(dist, iter_num, cfg: RegConfig):
@@ -181,6 +206,14 @@ def _weight_by_intensity(pi, qi, scale):
     return torch.exp(-torch.abs(pi - qi) / scale)
 
 
+def _translation(c: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] translations by ``c`` [..., 3]."""
+    T = torch.eye(4, dtype=c.dtype, device=c.device).expand(
+        *c.shape[:-1], 4, 4).clone()
+    T[..., :3, 3] = c
+    return T
+
+
 def mm_lls_icp(source: Dict[str, FeatureCloud],
                target: Dict[str, FeatureCloud], cfg: RegConfig,
                init_guess: torch.Tensor, max_iter: int,
@@ -188,11 +221,19 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
     """Register source onto target; returns T such that T @ source ~ target.
 
     ``cfg.used_feature_type`` selects classes.  ``dis_thre_add`` (float or
-    0-d tensor) widens the initial correspondence gate — the reference's
+    tensor) widens the initial correspondence gate — the reference's
     ``add_length`` recovery (`mulls_slam.cpp:650-657, 686-693`).
+
+    Clouds with a leading batch dimension (``[S, N, 3]``, ``init_guess``
+    [S, 4, 4], ``dis_thre_add`` a number or [S]) are S registrations run
+    as one: one grouped ``nn`` launch an iteration for every class of every
+    entry, each entry frozen once done, each with the result of its call
+    alone (the reference's batched ``while_loop`` freezes an entry the same
+    way).
     """
     dev = init_guess.device
     f32 = torch.float32
+    lead = tuple(init_guess.shape[:-2])
     used = [n for n in CLASS_ORDER
             if cfg.used_feature_type[_TYPE_IDX[n]] == "1" and n in source]
     cos_bearing = math.cos(math.radians(cfg.normal_bearing))
@@ -201,7 +242,6 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
     max_rot = math.radians(cfg.max_bearable_rotation_d)
     add = torch.as_tensor(dis_thre_add, dtype=f32, device=dev)
     max_tran = 2.0 * (cfg.corr_dis_thre_init + add)
-    eye4 = torch.eye(4, dtype=f32, device=dev)
     eye6 = torch.eye(6, dtype=f32, device=dev)
 
     s_counts = {n: source[n].count for n in used}
@@ -212,32 +252,33 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
 
     # intersection (bbx) filter (`cregistration.hpp:1186-1188, 2894`)
     if cfg.apply_intersection_filter:
-        tmin = torch.full((3,), float("inf"), device=dev)
-        tmax = torch.full((3,), -float("inf"), device=dev)
+        tmin = torch.full((*lead, 3), float("inf"), device=dev)
+        tmax = torch.full((*lead, 3), -float("inf"), device=dev)
         for n in used:
             tmin = torch.minimum(tmin, masked_min(
-                target[n].xyz, target[n].mask[:, None], dim=0))
+                target[n].xyz, target[n].mask[..., None], dim=-2))
             tmax = torch.maximum(tmax, masked_max(
-                target[n].xyz, target[n].mask[:, None], dim=0))
+                target[n].xyz, target[n].mask[..., None], dim=-2))
         bbx_pad = 2.0 * cfg.corr_dis_thre_init
-        tmin, tmax = tmin - bbx_pad, tmax + bbx_pad
+        tmin = (tmin - bbx_pad)[..., None, :]
+        tmax = (tmax + bbx_pad)[..., None, :]
     else:
         tmin = tmax = None
 
-    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    it = torch.zeros(lead, dtype=torch.int32, device=dev)
     T = init_guess.to(f32)
-    thre = torch.full((len(used),), cfg.corr_dis_thre_init, dtype=f32,
-                      device=dev) + add
-    done = torch.tensor(False, device=dev)
-    code = torch.tensor(0, dtype=torch.int32, device=dev)
-    sigma2 = torch.tensor(1.0, dtype=f32, device=dev)
-    info = eye6
-    conf = torch.tensor(1.0, dtype=f32, device=dev)
+    thre = torch.full((*lead, len(used)), cfg.corr_dis_thre_init, dtype=f32,
+                      device=dev) + add[..., None]
+    done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    code = torch.zeros(lead, dtype=torch.int32, device=dev)
+    sigma2 = torch.ones(lead, dtype=f32, device=dev)
+    info = eye6.expand(*lead, 6, 6)
+    conf = torch.ones(lead, dtype=f32, device=dev)
 
     shooting = [n for n in used if cfg.normal_shooting_on and _PLANAR[n]]
     for k in range(max_iter):
         # transform every class, then ONE grouped 1-NN launch for the
-        # classes that do not use normal shooting
+        # classes that do not use normal shooting (and every batch entry)
         s_pts, s_dirs, s_masks = {}, {}, {}
         for name in used:
             sc = source[name]
@@ -258,13 +299,14 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
             if name in shooting:
                 found[name] = normal_shooting_neighbor(
                     s_pts[name], s_dirs[name], s_masks[name],
-                    target[name].xyz, target[name].mask, 2.5 * thre[ci])
+                    target[name].xyz, target[name].mask,
+                    2.5 * thre[..., ci])
             corrs[name] = _find_corres(
                 found[name], s_pts[name], s_dirs[name], s_masks[name],
-                target[name], thre[ci], cos_bearing,
+                target[name], thre[..., ci], cos_bearing,
                 normal_check=(name != "vertex"))
 
-        cnt = {n: torch.sum(corrs[n].valid) for n in used}
+        cnt = {n: torch.sum(corrs[n].valid, -1) for n in used}
         total = sum(cnt.values())
         necessary = sum(cnt[n] for n in ("pillar", "facade", "beam")
                         if n in cnt)
@@ -283,33 +325,33 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
                 cfg.z_xy_balance_ratio * (m2 + 2 * m3 - m4)
                 / (1e-4 + 2.0 * m1), min=0.01)
         else:
-            w_ground = torch.tensor(1.0, device=dev)
-        class_w = {n: (w_ground if n in ("ground", "roof") else 1.0)
-                   for n in used}
+            w_ground = torch.ones(lead, device=dev)
+        class_w = {n: (w_ground[..., None] if n in ("ground", "roof")
+                       else 1.0) for n in used}
 
         # centred normal equations
-        wsum = torch.tensor(1e-6, dtype=f32, device=dev)
-        csum = torch.zeros((3,), dtype=f32, device=dev)
+        wsum = torch.full(lead, 1e-6, dtype=f32, device=dev)
+        csum = torch.zeros((*lead, 3), dtype=f32, device=dev)
         for name in used:
             v = corrs[name].valid
-            wsum = wsum + torch.sum(v)
-            csum = csum + torch.sum(torch.where(v[:, None], s_pts[name], 0.0),
-                                    0)
-        center = csum / wsum
+            wsum = wsum + torch.sum(v, -1)
+            csum = csum + fsum(torch.where(v[..., None], s_pts[name], 0.0),
+                               dim=-2)
+        center = csum / wsum[..., None]
 
-        ATA = torch.zeros((6, 6), dtype=f32, device=dev)
-        ATb = torch.zeros((6,), dtype=f32, device=dev)
-        vtpv = torch.tensor(0.0, dtype=f32, device=dev)
-        nobs = torch.tensor(0.0, dtype=f32, device=dev)
+        ATA = torch.zeros((*lead, 6, 6), dtype=f32, device=dev)
+        ATb = torch.zeros((*lead, 6), dtype=f32, device=dev)
+        vtpv = torch.zeros(lead, dtype=f32, device=dev)
+        nobs = torch.zeros(lead, dtype=f32, device=dev)
         per_class = {}
-        late = it > cfg.residual_weight_after_iter
+        late = (it > cfg.residual_weight_after_iter)[..., None]
         for name in used:
             sc, tc, corr = source[name], target[name], corrs[name]
-            p = s_pts[name] - center
-            q_abs = tc.xyz[corr.t_idx]
-            q = q_abs - center
-            tn = tc.normal[corr.t_idx]
-            pi, qi = sc.intensity, tc.intensity[corr.t_idx]
+            p = s_pts[name] - center[..., None, :]
+            q_abs = take(tc.xyz, corr.t_idx)
+            q = q_abs - center[..., None, :]
+            tn = take(tc.normal, corr.t_idx)
+            pi, qi = sc.intensity, take(tc.intensity, corr.t_idx)
             w = torch.where(corr.valid, class_w[name], 0.0)
             if strategy[2] == "1":
                 w = w * _weight_by_dist_adaptive(
@@ -353,55 +395,53 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
         # package): whiten by the diagonal, zero the update along
         # eigendirections with eigenvalue < degeneracy_thre
         if cfg.degeneracy_thre > 0.0:
-            tr_t = torch.trace(ATA_r[:3, :3])
-            tr_r = torch.trace(ATA_r[3:, 3:])
+            tr_t = ATA_r[..., 0, 0] + ATA_r[..., 1, 1] + ATA_r[..., 2, 2]
+            tr_r = ATA_r[..., 3, 3] + ATA_r[..., 4, 4] + ATA_r[..., 5, 5]
             rho = torch.sqrt(torch.clamp(tr_r, min=1e-9)
                              / torch.clamp(tr_t, min=1e-9))
-            s_bal = torch.cat([torch.ones(3, dtype=f32, device=dev),
-                               rho.expand(3)])
+            s_bal = torch.cat([torch.ones((*lead, 3), dtype=f32, device=dev),
+                               rho[..., None].expand(*lead, 3)], -1)
             norm = torch.clamp(tr_t / 3.0, min=1e-9)
-            Ahat = ATA_r / s_bal[:, None] / s_bal[None, :] / norm
+            Ahat = (ATA_r / s_bal[..., :, None] / s_bal[..., None, :]
+                    / norm[..., None, None])
             lam, Vh = torch.linalg.eigh(Ahat)
             keep = (lam >= cfg.degeneracy_thre).to(f32)
             z = s_bal * x
-            x = (Vh @ (keep * (Vh.T @ z))) / s_bal
+            x = matvec(Vh, keep * matvec(Vh.transpose(-1, -2), z)) / s_bal
 
         # residuals at the solution -> posterior sigma^2
         for name in used:
             kind, A_or_J, b_or_d, w = per_class[name]
             if kind == "pl":
-                r = A_or_J @ x - b_or_d
-                vtpv = vtpv + torch.sum(w * r * r)
-                nobs = nobs + torch.sum(w > 0)
+                r = matvec(A_or_J, x) - b_or_d
+                vtpv = vtpv + fsum(w * r * r, -1)
+                nobs = nobs + torch.sum(w > 0, -1)
             else:
-                r = torch.einsum("nkj,j->nk", A_or_J, x) - b_or_d
-                vtpv = vtpv + torch.sum(w * torch.sum(r * r, -1))
-                nobs = nobs + 3.0 * torch.sum(w > 0)
+                r = matvec(A_or_J, x[..., None, :]) - b_or_d
+                vtpv = vtpv + fsum(w * torch.sum(r * r, -1), -1)
+                nobs = nobs + 3.0 * torch.sum(w > 0, -1)
         sigma2_new = vtpv / torch.clamp(nobs - 6.0, min=1.0)
 
         # un-centre: T_step = Trans(c) @ T'(x) @ Trans(-c)
         Tp = se3.from_x(x)
-        Tc = eye4.clone()
-        Tc[:3, 3] = center
-        Tci = eye4.clone()
-        Tci[:3, 3] = -center
-        T_step = Tc @ Tp @ Tci
+        T_step = matmul(matmul(_translation(center), Tp),
+                        _translation(-center))
 
         # information matrix in the uncentred frame: ATA_unc = G^-T ATA G^-1
-        Ginv = eye6.clone()
-        Ginv[:3, 3:] = -se3.skew(center)
-        ATA_unc = Ginv.T @ ATA_r @ Ginv
+        Ginv = eye6.expand(*lead, 6, 6).clone()
+        Ginv[..., :3, 3:] = -se3.skew(center)
+        ATA_unc = matmul(matmul(Ginv.transpose(-1, -2), ATA_r), Ginv)
         # euler -> quaternion covariance propagation
         # (`cregistration.hpp:1953-1964, 2795-2836`)
-        Jbig = eye6.clone()
-        Jbig[3:, 3:] = se3.quat_euler_jacobi(x[3:6])
+        Jbig = eye6.expand(*lead, 6, 6).clone()
+        Jbig[..., 3:, 3:] = se3.quat_euler_jacobi(x[..., 3:6])
         cof = torch.linalg.inv_ex(ATA_unc)[0]
-        cof_q = Jbig @ cof @ Jbig.T
+        cof_q = matmul(matmul(Jbig, cof), Jbig.transpose(-1, -2))
         info_new = torch.linalg.inv_ex(cof_q + 1e-12 * eye6)[0] \
-            / torch.clamp(sigma2_new, min=1e-12)
+            / torch.clamp(sigma2_new, min=1e-12)[..., None, None]
 
-        step_t = torch.linalg.norm(T_step[:3, 3])
-        step_r = se3.rotation_angle(T_step[:3, :3])
+        step_t = torch.linalg.norm(T_step[..., :3, 3], dim=-1)
+        step_r = se3.rotation_angle(T_step[..., :3, :3])
         diverged = (step_t > max_tran) | (step_r > max_rot)
         converged = (it > 2) & (step_t < cfg.converge_tran) & \
             (step_r < converge_rot)
@@ -418,7 +458,7 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
         done_new = too_few | diverged | converged | last_iter
 
         apply_step = ~(too_few | diverged)
-        T_new = torch.where(apply_step, T_step @ T, T)
+        T_new = where(apply_step, matmul(T_step, T), T)
         # anneal thresholds for the next iteration
         thre_new = torch.clamp(thre / cfg.dis_thre_update_rate,
                                min=cfg.corr_dis_thre_min)
@@ -426,17 +466,17 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
         # freeze once done: the masked update equals the early exit
         live = ~done
         it = torch.where(live, it + 1, it)
-        T = torch.where(live, T_new, T)
-        thre = torch.where(live, thre_new, thre)
+        T = where(live, T_new, T)
+        thre = where(live, thre_new, thre)
         code = torch.where(live, code_new, code)
         sigma2 = torch.where(live & apply_step, sigma2_new, sigma2)
-        info = torch.where(live & apply_step, info_new, info)
+        info = where(live & apply_step, info_new, info)
         conf = torch.where(live, conf_new.to(f32), conf)
         done = done | done_new
 
     # re-orthonormalize the accumulated rotation
     T = T.clone()
-    T[:3, :3] = se3.orthonormalize(T[:3, :3])
+    T[..., :3, :3] = se3.orthonormalize(T[..., :3, :3])
     return RegResult(transform=T, information=info, sigma=torch.sqrt(sigma2),
                      confidence=conf, process_code=code, iterations=it)
 

@@ -6,7 +6,9 @@ Per-class fixed-capacity masked tensors updated by functions (transform ->
 dynamic removal -> append -> radius crop -> random re-budget).  The map is
 kept in the coordinate frame of the last appended scan, like the
 reference.  Per-class caps (``MapShapeConfig``) stand in for the
-reference's one global cap (`map_manager.cpp:73-86`).
+reference's one global cap (`map_manager.cpp:73-86`).  A map with a
+leading batch dimension (``[S, N, 3]`` clouds) is S maps updated as one;
+each gets the map of its update alone.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from mulls_tpu_torch.config import MapConfig
 from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.core.batch import expand_like, take
 from mulls_tpu_torch.core.cloud import (FEATURE_NAMES, FeatureCloud,
                                         FeatureFrame, VertexDescriptors)
 from mulls_tpu_torch.core.draws import Draws
@@ -52,8 +55,9 @@ def _dynamic_removal_mask(cloud: FeatureCloud, d2: torch.Tensor,
     d = torch.sqrt(torch.clamp(d2, min=0.0))
     rng = torch.linalg.norm(cloud.xyz, dim=-1)
     in_scope = rng < center_radius
-    dynamic = (d <= near_thre) | ((d >= dist_min) & (d <= dist_max))
-    drop = in_scope & dynamic & enabled
+    dynamic = (d <= near_thre) | ((d >= dist_min)
+                                  & (d <= expand_like(dist_max, d)))
+    drop = in_scope & dynamic & expand_like(enabled, d)
     return cloud.mask & ~drop
 
 
@@ -77,15 +81,21 @@ def update_local_map(local_map: LocalMap, frame: FeatureFrame,
     # global cap gate for dynamic removal (`map_manager.cpp:38`)
     map_count = sum(local_map.clouds[n].count
                     for n in ("ground", "pillar", "facade", "beam", "roof"))
-    removal_on = (torch.as_tensor(map_cfg.map_based_dynamic_removal_on,
-                                  device=dev)
-                  & (map_count > map_cfg.local_map_max_pt_num // 5)
-                  & torch.as_tensor(removal_enabled, device=dev))
+    # the gates that are host values stay on the host: a scalar made into
+    # a tensor on the card is a host-to-device copy, which syncs
+    removal_on = map_count > map_cfg.local_map_max_pt_num // 5
+    if torch.is_tensor(removal_enabled):
+        removal_on = removal_on & removal_enabled
+    elif not removal_enabled:
+        removal_on = torch.zeros_like(removal_on)
+    if not map_cfg.map_based_dynamic_removal_on:
+        removal_on = torch.zeros_like(removal_on)
     # (callers pass an already speed-scaled gate; the floor lives HERE only)
     dist_max = torch.clamp(dynamic_dist_max,
                            min=map_cfg.dynamic_dist_thre_min + 0.1)
 
-    append_ok = torch.as_tensor(append_enabled, device=dev)
+    append_ok = (expand_like(append_enabled, frame.down["ground"].mask)
+                 if torch.is_tensor(append_enabled) else bool(append_enabled))
     # Stage 1 — per-class elementwise prep (transform, crops, removal)
     olds, adds = {}, {}
     for name in FEATURE_NAMES:
@@ -118,27 +128,29 @@ def update_local_map(local_map: LocalMap, frame: FeatureFrame,
         fresh_by_name[name] = torch.cat([
             torch.zeros((old.capacity,), dtype=torch.float32, device=dev),
             torch.full((add.capacity,), 0.5, dtype=torch.float32,
-                       device=dev)])
+                       device=dev)])  # the same for every batch entry
 
     # Stage 2 — ONE class-keyed stable sort re-budgets every class at once
     # (reference `local_map.py:127-167`): key = class_id*4 + (1.5 - score)
     # for valid rows, class_id*4 + 3 for invalid; each class's winners are a
     # static slice of the sorted order.  ``jnp.argsort`` is stable, hence
-    # ``stable=True`` here.
+    # ``stable=True`` here.  The slices' starts are the classes' static
+    # capacities (host numbers), the same in every batch entry.
     lengths = [merged_by_name[n].capacity for n in FEATURE_NAMES]
     starts = np.concatenate([[0], np.cumsum(lengths)]).astype(int)
-    all_mask = torch.cat([merged_by_name[n].mask for n in FEATURE_NAMES])
+    all_mask = torch.cat([merged_by_name[n].mask for n in FEATURE_NAMES], -1)
     score = draws.uniform(all_mask.shape) + torch.cat(
         [fresh_by_name[n] for n in FEATURE_NAMES])
     class_id = torch.cat([
         torch.full((lengths[i],), 4.0 * i, dtype=torch.float32, device=dev)
         for i in range(len(FEATURE_NAMES))])
     sort_key = class_id + torch.where(all_mask, 1.5 - score, 3.0)
-    perm = torch.argsort(sort_key, stable=True)
+    perm = torch.argsort(sort_key, dim=-1, stable=True)
+    axis = all_mask.dim() - 1  # the point axis
 
     def _cat(field):
-        return torch.cat([getattr(merged_by_name[n], field)
-                          for n in FEATURE_NAMES])[perm]
+        return take(torch.cat([getattr(merged_by_name[n], field)
+                               for n in FEATURE_NAMES], axis), perm)
 
     sorted_cloud = FeatureCloud(xyz=_cat("xyz"), normal=_cat("normal"),
                                 intensity=_cat("intensity"),
@@ -149,20 +161,21 @@ def update_local_map(local_map: LocalMap, frame: FeatureFrame,
     for i, name in enumerate(FEATURE_NAMES):
         s0 = int(starts[i])
         cap = caps.capacity(name)
-        new_clouds[name] = tree_map(lambda a: a[s0:s0 + cap], sorted_cloud)
+        new_clouds[name] = tree_map(lambda a: a.narrow(axis, s0, cap),
+                                    sorted_cloud)
 
     # vertex descriptors ride the same permutation (vertex segment only)
     i_v = FEATURE_NAMES.index("vertex")
     cap_v = caps.capacity("vertex")
-    vert_perm = perm[int(starts[i_v]):int(starts[i_v]) + cap_v] \
-        - int(starts[i_v])
+    s_v = int(starts[i_v])
+    vert_perm = perm[..., s_v:s_v + cap_v] - s_v
     desc_vec = torch.cat([local_map.vertex_desc.vec, frame.descriptors.vec],
-                         dim=0)
+                         dim=axis)
     desc_mask = torch.cat([local_map.vertex_desc.mask,
-                           frame.descriptors.mask], dim=0)
+                           frame.descriptors.mask], dim=axis)
     new_desc = VertexDescriptors(
-        vec=desc_vec[vert_perm],
-        mask=new_clouds["vertex"].mask & desc_mask[vert_perm])
+        vec=take(desc_vec, vert_perm),
+        mask=new_clouds["vertex"].mask & take(desc_mask, vert_perm))
     return LocalMap(clouds=new_clouds, vertex_desc=new_desc)
 
 
@@ -190,9 +203,9 @@ def refresh_linear_map_vectors(local_map: LocalMap) -> LocalMap:
         f = pca_features(c.xyz, c.mask, c.xyz, c.mask, _REFRESH_RADIUS,
                          _REFRESH_MIN_K)
         keep = (f.valid & (f.linearity > _REFRESH_MIN_LINEARITY)
-                & keep_gate(torch.abs(f.principal[:, 2])))
+                & keep_gate(torch.abs(f.principal[..., 2])))
         new_clouds[name] = c.replace(
-            normal=torch.where(keep[:, None], f.principal, c.normal),
+            normal=torch.where(keep[..., None], f.principal, c.normal),
             strength=torch.where(keep, f.linearity, c.strength),
             mask=c.mask & keep)
     return LocalMap(clouds=new_clouds, vertex_desc=local_map.vertex_desc)

@@ -33,6 +33,15 @@ launch of the nn kernel, ``nn_grouped.launches`` those made for
 the counts are taken under a lock, and :func:`count_launches` gives one
 thread's own launches (the back end's apart from the front end's).
 
+Batches: the wrappers of nn, moments and pca_moments take inputs with
+leading batch dimensions (``[S, Q, 3]`` queries against ``[S, P, 3]``
+support: the S sequences of ``parallel/multiseq.py`` stepped as one) and
+launch once for all of them: the problems of a group for ``nn``, a grid
+axis for the batch entry in ``moments.cu`` and ``pca_moments.cu``.  Each
+entry keeps the tiles, chunks and merge order of its launch alone, so its
+outputs equal that launch's bit for bit.  The plain versions loop over the
+entries.
+
 The nn, moments and pca_moments kernels merge across support chunks
 through scratch kept per device and stream (:func:`_scratch`): merge words
 and arrival counters that every launch leaves as it found them, so no
@@ -72,7 +81,7 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libmulls_tpu_torch_kernels.so"
 # the kernels' geometry (checked against csrc/ when the library loads)
-NN_MAX_GROUP = 8  # problems in one nn launch
+NN_MAX_GROUP = 48  # problems in one nn launch
 NN_TILE_Q, NN_CHUNK = 128, 1024  # queries x support points per nn block
 MOMENTS_MAX_C = 16  # templated accumulator widths in csrc/moments.cu
 MOMENTS_TILE_Q, MOMENTS_CHUNK = 128, 1024
@@ -181,11 +190,11 @@ def _load_library() -> ctypes.CDLL:
     lib.mulls_nn_grouped.restype = i
     lib.mulls_nn_empty_key.argtypes = []
     lib.mulls_nn_empty_key.restype = ctypes.c_ulonglong
-    lib.mulls_moments.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp, vp,
-                                  vp, vp, vp, vp]
+    lib.mulls_moments.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp,
+                                  vp, vp, vp, vp, vp]
     lib.mulls_moments.restype = i
-    lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, i, vp, vp, vp,
-                                      vp, vp, vp]
+    lib.mulls_pca_moments.argtypes = [vp, vp, vp, vp, i, i, i, i, vp, vp,
+                                      vp, vp, vp, vp]
     lib.mulls_pca_moments.restype = i
     lib.mulls_count_within.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
                                        i, vp, vp]
@@ -337,7 +346,10 @@ def sqdist_direct(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def nn_plain(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
              p_mask: torch.Tensor, chunk: int = 2048
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch 1-NN over [chunk, P] distance blocks."""
+    """Plain PyTorch 1-NN over [chunk, P] distance blocks, each batch
+    entry on its own."""
+    if q_xyz.dim() > 2:
+        return _per_entry(nn_plain, (q_xyz, q_mask, p_xyz, p_mask), 2)
     idx_parts, d2_parts = [], []
     for s in range(0, max(q_xyz.shape[0], 1), chunk):  # Q = 0: one block
         d2 = sqdist_direct(q_xyz[s:s + chunk], p_xyz)
@@ -348,6 +360,20 @@ def nn_plain(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
     idx = torch.cat(idx_parts)
     d2 = torch.where(q_mask, torch.cat(d2_parts), _BIG)
     return idx, d2
+
+
+def _per_entry(fn, args, point_dims: int):
+    """``fn`` on each batch entry of ``args`` (the batch dimensions are all
+    but the last ``point_dims`` of the first argument), outputs stacked."""
+    lead = args[0].shape[:args[0].dim() - point_dims]
+    n = math.prod(lead)
+    flat = [None if a is None else a.reshape(n, *a.shape[len(lead):])
+            for a in args]
+    outs = [fn(*[None if a is None else a[b] for a in flat])
+            for b in range(n)]
+    return tuple(None if o[0] is None else
+                 torch.stack(o).reshape(*lead, *o[0].shape)
+                 for o in zip(*outs))
 
 
 NnProblem = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -361,38 +387,59 @@ def nn_grouped_plain(problems: Sequence[NnProblem]
 
 def _check_nn(problem: NnProblem, dev: torch.device, tag: str) -> None:
     q_xyz, q_mask, p_xyz, p_mask = problem
-    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
-    _check(f"{tag}q_xyz", q_xyz, torch.float32, (qn, 3), dev)
-    _check(f"{tag}q_mask", q_mask, torch.bool, (qn,), dev)
-    _check(f"{tag}p_xyz", p_xyz, torch.float32, (pn, 3), dev)
-    _check(f"{tag}p_mask", p_mask, torch.bool, (pn,), dev)
+    lead = tuple(q_xyz.shape[:-2])
+    qn, pn = q_xyz.shape[-2], p_xyz.shape[-2]
+    _check(f"{tag}q_xyz", q_xyz, torch.float32, (*lead, qn, 3), dev)
+    _check(f"{tag}q_mask", q_mask, torch.bool, (*lead, qn), dev)
+    _check(f"{tag}p_xyz", p_xyz, torch.float32, (*lead, pn, 3), dev)
+    _check(f"{tag}p_mask", p_mask, torch.bool, (*lead, pn), dev)
     if pn < 1:
         raise ValueError(f"{tag}nn: empty support")
 
 
-def _nn_outputs(qn: int, dev: torch.device
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.empty((qn,), dtype=torch.int32, device=dev),
-            torch.empty((qn,), dtype=torch.float32, device=dev))
+def _nn_entries(problem: NnProblem, out: Tuple[torch.Tensor, torch.Tensor]
+                ) -> list:
+    """The launch entries of a checked CUDA problem: for each batch entry
+    with queries, its six pointers (q, q_mask, p, p_mask, idx, d2) and its
+    sizes (Q, P)."""
+    q_xyz, q_mask, p_xyz, p_mask = problem
+    qn, pn = q_xyz.shape[-2], p_xyz.shape[-2]
+    if qn == 0:
+        return []
+    base = [t.data_ptr() for t in (*problem, *out)]
+    step = (12 * qn, qn, 12 * pn, pn, 4 * qn, 4 * qn)  # bytes an entry
+    return [([b + k * st for b, st in zip(base, step)], qn, pn)
+            for k in range(math.prod(q_xyz.shape[:-2]))]
 
 
-def _launch_nn(problems: Sequence[NnProblem]
-               ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """One launch of ``csrc/nn.cu`` for up to NN_MAX_GROUP checked CUDA
-    problems, each with Q >= 1."""
-    dev = problems[0][0].device
-    outs = [_nn_outputs(pr[0].shape[0], dev) for pr in problems]
-    ptrs = (ctypes.c_void_p * (6 * len(problems)))(*[
-        t.data_ptr() for pr, out in zip(problems, outs) for t in (*pr, *out)])
-    sizes = (ctypes.c_int * (2 * len(problems)))(*[
-        n for pr in problems for n in (pr[0].shape[0], pr[2].shape[0])])
-    n_tiles = sum(-(-pr[0].shape[0] // NN_TILE_Q) for pr in problems)
-    keys, counters = _scratch(problems[0][0],
-                              sum(pr[0].shape[0] for pr in problems), n_tiles)
+def _launch_nn(entries: list, like: torch.Tensor) -> None:
+    """One launch of ``csrc/nn.cu`` for up to NN_MAX_GROUP entries of
+    :func:`_nn_entries` on ``like``'s device."""
+    ptrs = (ctypes.c_void_p * (6 * len(entries)))(*[
+        p for ptr6, _, _ in entries for p in ptr6])
+    sizes = (ctypes.c_int * (2 * len(entries)))(*[
+        n for _, qn, pn in entries for n in (qn, pn)])
+    n_tiles = sum(-(-qn // NN_TILE_Q) for _, qn, _ in entries)
+    keys, counters = _scratch(like, sum(qn for _, qn, _ in entries), n_tiles)
     _check_launch(library().mulls_nn_grouped(
-        len(problems), ptrs, sizes, _ptr(keys), _ptr(counters),
-        _stream(problems[0][0])), "nn")
+        len(entries), ptrs, sizes, _ptr(keys), _ptr(counters),
+        _stream(like)), "nn")
     _count(nn)
+
+
+def _nn_cuda(problems: Sequence[NnProblem], grouped: bool
+             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    outs, entries = [], []
+    for pr in problems:
+        shape = tuple(pr[0].shape[:-1])
+        out = (torch.empty(shape, dtype=torch.int32, device=pr[0].device),
+               torch.empty(shape, dtype=torch.float32, device=pr[0].device))
+        outs.append(out)
+        entries += _nn_entries(pr, out)
+    for s in range(0, len(entries), NN_MAX_GROUP):
+        _launch_nn(entries[s:s + NN_MAX_GROUP], problems[0][0])
+        if grouped:
+            _count(nn_grouped)
     return outs
 
 
@@ -401,7 +448,9 @@ def nn_grouped(problems: Sequence[NnProblem]
     """:func:`nn` for each ``(q_xyz, q_mask, p_xyz, p_mask)`` problem of a
     group, in one launch per NN_MAX_GROUP problems (problems without
     queries take none).  Returns ``[(idx, sqdist), ...]`` in order; every
-    result equals :func:`nn` on its problem bit for bit.
+    result equals :func:`nn` on its problem bit for bit.  A problem with
+    batch dimensions (``[S, Q, 3]`` against ``[S, P, 3]``) counts as one
+    problem an entry.
 
     CUDA kernel: ``csrc/nn.cu`` (replaces ``nn_pallas``,
     ``mulls_tpu/ops/kernels.py:90-150``): query tiles x support chunks over
@@ -414,33 +463,25 @@ def nn_grouped(problems: Sequence[NnProblem]
         _check_nn(pr, dev, f"problem {k}: ")
     if not _dispatch(dev):
         return nn_grouped_plain(problems)
-    outs = [_nn_outputs(0, dev) for _ in problems]
-    live = [k for k, pr in enumerate(problems) if pr[0].shape[0] > 0]
-    for s in range(0, len(live), NN_MAX_GROUP):
-        group = live[s:s + NN_MAX_GROUP]
-        for k, out in zip(group, _launch_nn([problems[k] for k in group])):
-            outs[k] = out
-        _count(nn_grouped)
-    return outs
+    return _nn_cuda(problems, grouped=True)
 
 
 def nn(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
        p_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused 1-NN: (idx [Q] int32, sqdist [Q] f32).  Invalid support is
-    excluded, invalid queries get the 3.0e38 sentinel, ties go to the lowest
-    support index (API parity with ``mulls_tpu.ops.kernels.nn_pallas``).
+    """Fused 1-NN: (idx [..., Q] int32, sqdist [..., Q] f32).  Invalid
+    support is excluded, invalid queries get the 3.0e38 sentinel, ties go
+    to the lowest support index (API parity with
+    ``mulls_tpu.ops.kernels.nn_pallas``).
 
-    CUDA kernel: ``csrc/nn.cu`` as a group of one (replaces ``nn_pallas``,
-    ``mulls_tpu/ops/kernels.py:90-150``) — bound by fp32 operations, see
-    the source note."""
+    CUDA kernel: ``csrc/nn.cu`` as a group of the batch's entries
+    (replaces ``nn_pallas``, ``mulls_tpu/ops/kernels.py:90-150``) — bound
+    by fp32 operations, see the source note."""
     problem = (q_xyz, q_mask, p_xyz, p_mask)
     dev = q_xyz.device
     _check_nn(problem, dev, "")
     if not _dispatch(dev):
         return nn_plain(*problem)
-    if q_xyz.shape[0] == 0:  # nothing to launch
-        return _nn_outputs(0, dev)
-    return _launch_nn([problem])[0]
+    return _nn_cuda([problem], grouped=False)[0]
 
 
 nn.launches = 0
@@ -456,7 +497,12 @@ def moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
                   feat_stack: torch.Tensor,
                   close_r2: Optional[torch.Tensor] = None, chunk: int = 1024
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch ``adj @ feat_stack`` over [chunk, P] blocks."""
+    """Plain PyTorch ``adj @ feat_stack`` over [chunk, P] blocks, each
+    batch entry on its own."""
+    if q_xyz.dim() > 2:
+        return _per_entry(
+            lambda q, p, m, r, f, c: moments_plain(q, p, m, r, f, c, chunk),
+            (q_xyz, p_xyz, p_mask, r2, feat_stack, close_r2), 2)
     sums, csums = [], []
     for s in range(0, q_xyz.shape[0], chunk):
         d2 = sqdist_direct(q_xyz[s:s + chunk], p_xyz)
@@ -465,6 +511,9 @@ def moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
         if close_r2 is not None:
             close = adj & (d2 <= close_r2[s:s + chunk, None])
             csums.append(close.to(torch.float32) @ feat_stack)
+    if not sums:  # no queries
+        sums = [feat_stack.new_zeros((0, feat_stack.shape[1]))]
+        csums = sums
     return (torch.cat(sums),
             torch.cat(csums) if close_r2 is not None else None)
 
@@ -476,45 +525,53 @@ def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
     """Fused neighborhood sums (API of ``moments_pallas``).
 
     Args:
-      q_xyz: [Q,3] queries; r2: [Q] per-query squared radius.
-      p_xyz/p_mask: [P,3]/[P] support; invalid rows contribute nothing.
-      feat_stack: [P,C] per-support features, C <= 16.
-      close_r2: [Q] absolute squared close radius, or None; the second
+      q_xyz: [..., Q,3] queries; r2: [..., Q] per-query squared radius.
+      p_xyz/p_mask: [..., P,3]/[..., P] support; invalid rows contribute
+        nothing.
+      feat_stack: [..., P,C] per-support features, C <= 16.
+      close_r2: [..., Q] absolute squared close radius, or None; the second
         output sums over d2 <= min(r2, close_r2).
+    The leading dimensions, if any, are batch entries, each its own
+    problem.
 
-    Returns (sums [Q,C], close_sums [Q,C] or None).
+    Returns (sums [..., Q,C], close_sums [..., Q,C] or None).
 
     CUDA kernel: ``csrc/moments.cu`` (replaces ``moments_pallas``,
-    ``mulls_tpu/ops/kernels.py:157-262``): query tiles x support chunks,
-    merged in chunk order, so two launches give the same bits."""
+    ``mulls_tpu/ops/kernels.py:157-262``): query tiles x support chunks
+    (x batch entries), merged in chunk order, so two launches give the
+    same bits and an entry of a batch those of its launch alone."""
     dev = q_xyz.device
-    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
-    cn = feat_stack.shape[1] if feat_stack.dim() == 2 else -1
-    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
-    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
-    _check("p_mask", p_mask, torch.bool, (pn,), dev)
-    _check("r2", r2, torch.float32, (qn,), dev)
-    _check("feat_stack", feat_stack, torch.float32, (pn, cn), dev)
+    lead = tuple(q_xyz.shape[:-2])
+    qn, pn = q_xyz.shape[-2], p_xyz.shape[-2]
+    cn = feat_stack.shape[-1] if feat_stack.dim() == len(lead) + 2 else -1
+    _check("q_xyz", q_xyz, torch.float32, (*lead, qn, 3), dev)
+    _check("p_xyz", p_xyz, torch.float32, (*lead, pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (*lead, pn), dev)
+    _check("r2", r2, torch.float32, (*lead, qn), dev)
+    _check("feat_stack", feat_stack, torch.float32, (*lead, pn, cn), dev)
     if close_r2 is not None:
-        _check("close_r2", close_r2, torch.float32, (qn,), dev)
+        _check("close_r2", close_r2, torch.float32, (*lead, qn), dev)
     if not 1 <= cn <= MOMENTS_MAX_C:
         raise ValueError(f"moments: feature width {cn} outside "
                          f"[1, {MOMENTS_MAX_C}]")
     if not _dispatch(dev):
         return moments_plain(q_xyz, p_xyz, p_mask, r2, feat_stack, close_r2)
     lib = library()
-    sums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+    n_seq = math.prod(lead)
+    sums = torch.empty((*lead, qn, cn), dtype=torch.float32, device=dev)
     # per-chunk partial sums, added in chunk order by the kernel
-    part_shape = (max(1, -(-pn // MOMENTS_CHUNK)), qn, cn)
+    part_shape = (n_seq, max(1, -(-pn // MOMENTS_CHUNK)), qn, cn)
     partial = torch.empty(part_shape, dtype=torch.float32, device=dev)
     csums = cpartial = None
     if close_r2 is not None:
-        csums = torch.empty((qn, cn), dtype=torch.float32, device=dev)
+        csums = torch.empty((*lead, qn, cn), dtype=torch.float32, device=dev)
         cpartial = torch.empty(part_shape, dtype=torch.float32, device=dev)
-    _, counters = _scratch(q_xyz, 0, -(-qn // MOMENTS_TILE_Q))
+    if qn == 0 or n_seq == 0:  # nothing to launch
+        return sums, csums
+    _, counters = _scratch(q_xyz, 0, n_seq * -(-qn // MOMENTS_TILE_Q))
     _check_launch(lib.mulls_moments(
         _ptr(q_xyz), _ptr(r2), _ptr(close_r2), _ptr(p_xyz), _ptr(p_mask),
-        _ptr(feat_stack), qn, pn, cn, _ptr(partial), _ptr(cpartial),
+        _ptr(feat_stack), qn, pn, cn, n_seq, _ptr(partial), _ptr(cpartial),
         _ptr(counters), _ptr(sums), _ptr(csums), _stream(q_xyz)), "moments")
     _count(moments)
     return sums, csums
@@ -531,7 +588,12 @@ def pca_moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
                       p_mask: torch.Tensor, r2: torch.Tensor,
                       chunk: int = 512
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch query-centred moments over [chunk, P] blocks."""
+    """Plain PyTorch query-centred moments over [chunk, P] blocks, each
+    batch entry on its own."""
+    if q_xyz.dim() > 2:
+        return _per_entry(
+            lambda q, p, m, r: pca_moments_plain(q, p, m, r, chunk),
+            (q_xyz, p_xyz, p_mask, r2), 2)
     cnt, s1, s2 = [], [], []
     for s in range(0, q_xyz.shape[0], chunk):
         qc = q_xyz[s:s + chunk]
@@ -547,6 +609,9 @@ def pca_moments_plain(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
         s2.append(torch.stack([(ax * ex).sum(1), (ax * ey).sum(1),
                                (ax * ez).sum(1), (ay * ey).sum(1),
                                (ay * ez).sum(1), (az * ez).sum(1)], -1))
+    if not cnt:  # no queries
+        z = q_xyz.new_zeros
+        return z((0,)), z((0, 3)), z((0, 6))
     return torch.cat(cnt), torch.cat(s1), torch.cat(s2)
 
 
@@ -572,38 +637,43 @@ def pca_chunk(qn: int, pn: int) -> int:
 def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
                 p_mask: torch.Tensor, r2: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(count [Q], sum(p - q) [Q,3], sum((p - q)(p - q)^T) upper [Q,6])
-    over valid support within each query's radius — moments about the
-    query point; feed straight into ``cov_from_moments`` (covariance is
-    shift-invariant).
+    """(count [..., Q], sum(p - q) [..., Q,3], sum((p - q)(p - q)^T) upper
+    [..., Q,6]) over valid support within each query's radius — moments
+    about the query point; feed straight into ``cov_from_moments``
+    (covariance is shift-invariant).  Leading dimensions are batch entries,
+    each its own problem.
 
     CUDA kernel: ``csrc/pca_moments.cu`` (replaces ``pca_moments_pallas``,
     ``mulls_tpu/ops/kernels.py:269-347``): query tiles x support chunks
-    (:func:`pca_chunk`), a warp vote per four points so that a miss costs
-    only the distance and the compare, sums centred at each query in fp32
-    and merged in chunk order, so two launches give the same bits."""
+    (:func:`pca_chunk`, chosen from one entry's sizes) x batch entries, a
+    warp vote per four points so that a miss costs only the distance and
+    the compare, sums centred at each query in fp32 and merged in chunk
+    order, so two launches give the same bits and an entry of a batch
+    those of its launch alone."""
     dev = q_xyz.device
-    qn, pn = q_xyz.shape[0], p_xyz.shape[0]
-    _check("q_xyz", q_xyz, torch.float32, (qn, 3), dev)
-    _check("p_xyz", p_xyz, torch.float32, (pn, 3), dev)
-    _check("p_mask", p_mask, torch.bool, (pn,), dev)
-    _check("r2", r2, torch.float32, (qn,), dev)
+    lead = tuple(q_xyz.shape[:-2])
+    qn, pn = q_xyz.shape[-2], p_xyz.shape[-2]
+    _check("q_xyz", q_xyz, torch.float32, (*lead, qn, 3), dev)
+    _check("p_xyz", p_xyz, torch.float32, (*lead, pn, 3), dev)
+    _check("p_mask", p_mask, torch.bool, (*lead, pn), dev)
+    _check("r2", r2, torch.float32, (*lead, qn), dev)
     if not _dispatch(dev):
         return pca_moments_plain(q_xyz, p_xyz, p_mask, r2)
     lib = library()
-    cnt = torch.empty((qn,), dtype=torch.float32, device=dev)
-    s1 = torch.empty((qn, 3), dtype=torch.float32, device=dev)
-    s2 = torch.empty((qn, 6), dtype=torch.float32, device=dev)
-    if qn == 0:  # nothing to launch
+    n_seq = math.prod(lead)
+    cnt = torch.empty((*lead, qn), dtype=torch.float32, device=dev)
+    s1 = torch.empty((*lead, qn, 3), dtype=torch.float32, device=dev)
+    s2 = torch.empty((*lead, qn, 6), dtype=torch.float32, device=dev)
+    if qn == 0 or n_seq == 0:  # nothing to launch
         return cnt, s1, s2
     chunk = pca_chunk(qn, pn)
     # per-chunk partial sums, added in chunk order by the kernel
-    partial = torch.empty((max(1, -(-pn // chunk)), qn, 10),
+    partial = torch.empty((n_seq, max(1, -(-pn // chunk)), qn, 10),
                           dtype=torch.float32, device=dev)
-    _, counters = _scratch(q_xyz, 0, -(-qn // PCA_TILE_Q))
+    _, counters = _scratch(q_xyz, 0, n_seq * -(-qn // PCA_TILE_Q))
     _check_launch(lib.mulls_pca_moments(
         _ptr(q_xyz), _ptr(r2), _ptr(p_xyz), _ptr(p_mask), qn, pn, chunk,
-        _ptr(partial), _ptr(counters), _ptr(cnt), _ptr(s1), _ptr(s2),
+        n_seq, _ptr(partial), _ptr(counters), _ptr(cnt), _ptr(s1), _ptr(s2),
         _stream(q_xyz)), "pca_moments")
     _count(pca_moments)
     return cnt, s1, s2

@@ -7,7 +7,8 @@ Per-point in-frame timestamp ratios come either from sensor timestamps
 (`cfilter.hpp:429-467`).  Undistortion interpolates each point's pose
 between the frame-start and frame-end poses: quaternion slerp for rotation
 + linear interpolation for translation (`cfilter.hpp:470-516`), batched
-over the cloud.
+over the cloud.  Every function takes leading batch dimensions (``[S, N,
+3]`` clouds, ``[S, 4, 4]`` motions), each entry on its own.
 """
 
 from __future__ import annotations
@@ -17,15 +18,16 @@ import math
 import torch
 
 from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.core.batch import matvec
 
 
 def timestamp_ratio_from_azimuth(xyz: torch.Tensor,
                                  mask: torch.Tensor) -> torch.Tensor:
-    """[N,3] -> [N] ratio in [0,1]: unwrapped clockwise azimuth swept since
-    the first valid return (`cfilter.hpp:429-467`)."""
-    az = torch.atan2(xyz[:, 1], xyz[:, 0])  # (-pi, pi]
-    first = torch.argmax(mask.to(torch.int32))  # first valid index
-    az0 = az[first]
+    """[..., N,3] -> [..., N] ratio in [0,1]: unwrapped clockwise azimuth
+    swept since the first valid return (`cfilter.hpp:429-467`)."""
+    az = torch.atan2(xyz[..., 1], xyz[..., 0])  # (-pi, pi]
+    first = torch.argmax(mask.to(torch.int32), dim=-1, keepdim=True)
+    az0 = torch.gather(az, -1, first)  # at the first valid index
     # most spinning LiDARs sweep clockwise (decreasing azimuth)
     swept = torch.remainder(az0 - az, 2.0 * math.pi)
     ratio = swept / (2.0 * math.pi)
@@ -33,20 +35,22 @@ def timestamp_ratio_from_azimuth(xyz: torch.Tensor,
 
 
 def _quat_pow(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Quaternion power q^w for unit q=[w,x,y,z] and a batch of w in [0,1]
-    — the slerp between identity and q.  Returns [N, 4]."""
-    qw = torch.clamp(q[0], -1.0, 1.0)
+    """Quaternion power q^w for unit q=[..., 4] (w, x, y, z) and w [..., N]
+    in [0,1] — the slerp between identity and q.  Returns [..., N, 4]."""
+    q = q[..., None, :]  # one quaternion for the N points
+    qw = torch.clamp(q[..., :1], -1.0, 1.0)
     angle = torch.arccos(torch.abs(qw))
     sign = torch.where(qw < 0, -1.0, 1.0)  # shortest arc
-    axis_norm = torch.linalg.norm(q[1:])
-    axis = q[1:] / torch.clamp(axis_norm, min=1e-12)
-    new_angle = angle * w  # [N]
-    out = torch.cat([torch.cos(new_angle)[:, None],
-                     torch.sin(new_angle)[:, None] * axis * sign], dim=1)
+    axis_norm = torch.linalg.norm(q[..., 1:], dim=-1, keepdim=True)
+    axis = q[..., 1:] / torch.clamp(axis_norm, min=1e-12)
+    new_angle = angle * w[..., None]  # [..., N, 1]
+    out = torch.cat([torch.cos(new_angle),
+                     torch.sin(new_angle) * axis * sign], dim=-1)
     # q ~ identity: fall back to lerp-normalize (numerically stable)
-    lerp = torch.cat([(1.0 - w + w * qw * sign)[:, None],
-                      w[:, None] * q[1:] * sign], dim=1)
-    lerp = lerp / torch.clamp(torch.linalg.norm(lerp, dim=1, keepdim=True),
+    w = w[..., None]
+    lerp = torch.cat([1.0 - w + w * qw * sign, w * q[..., 1:] * sign],
+                     dim=-1)
+    lerp = lerp / torch.clamp(torch.linalg.norm(lerp, dim=-1, keepdim=True),
                               min=1e-12)
     return torch.where(axis_norm < 1e-6, lerp, out)
 
@@ -57,13 +61,13 @@ def undistort(xyz: torch.Tensor, ts_ratio: torch.Tensor, mask: torch.Tensor,
     sweep end expressed in the sweep-start frame): a point captured at
     ratio ``s`` is mapped by ``T_rel^s`` into the sweep-start frame
     (`cfilter.hpp:470-516`)."""
-    q = se3.quat_from_rotation(T_rel[:3, :3])
-    t = T_rel[:3, 3]
+    q = se3.quat_from_rotation(T_rel[..., :3, :3])
+    t = T_rel[..., None, :3, 3]
     w = torch.clamp(ts_ratio, 0.0, 1.0)
-    Rs = se3.rotation_from_quat(_quat_pow(q, w))  # [N,3,3]
-    out = torch.einsum("nij,nj->ni", Rs, xyz) + w[:, None] * t[None, :]
+    Rs = se3.rotation_from_quat(_quat_pow(q, w))  # [..., N,3,3]
+    out = matvec(Rs, xyz) + w[..., None] * t
     keep = mask & (torch.linalg.norm(xyz, dim=-1) > min_range)
-    return torch.where(keep[:, None], out, xyz)
+    return torch.where(keep[..., None], out, xyz)
 
 
 def vertical_intrinsic_calibration(xyz: torch.Tensor,
@@ -83,9 +87,9 @@ def vertical_intrinsic_calibration(xyz: torch.Tensor,
                               dtype=torch.float32))
     dist = torch.linalg.norm(xyz, dim=-1)
     safe = torch.clamp(dist, min=1e-12)
-    v_ang = torch.arcsin(torch.clamp(xyz[:, 2] / safe, -1.0, 1.0))
+    v_ang = torch.arcsin(torch.clamp(xyz[..., 2] / safe, -1.0, 1.0))
     v_ang_c = v_ang + dang
     hor_scale = torch.cos(v_ang_c) / torch.clamp(torch.cos(v_ang), min=1e-12)
-    out = torch.stack([xyz[:, 0] * hor_scale, xyz[:, 1] * hor_scale,
+    out = torch.stack([xyz[..., 0] * hor_scale, xyz[..., 1] * hor_scale,
                        dist * torch.sin(v_ang_c)], -1)
-    return torch.where(dist[:, None] > 0, out, xyz)
+    return torch.where(dist[..., None] > 0, out, xyz)

@@ -9,7 +9,9 @@ only sums over the neighborhood (count, sum x, sum xx^T), and any per-point
 attribute sum (class one-hots for the NCC descriptor) is the same masked
 sum ``S = A @ F``.  The fused work runs in the CUDA kernels of
 :mod:`mulls_tpu_torch.ops.kernels` on the card and in their plain versions
-on the CPU.
+on the CPU.  Every function takes leading batch dimensions (``[S, Q, 3]``
+queries against ``[S, P, 3]`` support), each entry its own problem, and
+launches its kernel once for all of them.
 """
 
 from __future__ import annotations
@@ -23,18 +25,35 @@ from mulls_tpu_torch.ops import kernels
 _BIG = 3.0e38
 
 
+def _rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., Q,3] x [..., P,3] -> [..., Q,P] dot products, one matmul a
+    batch entry: a batched matmul may add in another order than the
+    entry's own (``tools/batch_bits.py``)."""
+    if a.dim() == 2:
+        return a @ b.T
+    lead = a.shape[:-2]
+    a2 = a.reshape(-1, *a.shape[-2:])
+    b2 = b.reshape(-1, *b.shape[-2:])
+    return torch.stack([x @ y.T for x, y in zip(a2, b2)]).reshape(
+        *lead, a.shape[-2], b.shape[-2])
+
+
 def pairwise_sqdist(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """[Q,3] x [P,3] -> [Q,P] squared distances (f32 matmul path)."""
+    """[..., Q,3] x [..., P,3] -> [..., Q,P] squared distances (f32 matmul
+    path)."""
     q2 = torch.sum(q * q, dim=-1, keepdim=True)
-    p2 = torch.sum(p * p, dim=-1, keepdim=True).T
-    cross = q @ p.T
+    p2 = torch.sum(p * p, dim=-1, keepdim=True).transpose(-1, -2)
+    cross = _rows_dot(q, p)
     return torch.clamp(q2 + p2 - 2.0 * cross, min=0.0)
 
 
-def _per_query(x, qn: int, device) -> torch.Tensor:
-    return torch.broadcast_to(
-        torch.as_tensor(x, dtype=torch.float32, device=device),
-        (qn,)).contiguous()
+def _per_query(x, shape, device) -> torch.Tensor:
+    """A radius (a number, or a tensor of ``shape`` or of its leading
+    dimensions) as a contiguous tensor of ``shape``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if 0 < x.dim() < len(shape):
+        x = x.reshape(x.shape + (1,) * (len(shape) - x.dim()))
+    return torch.broadcast_to(x, shape).contiguous()
 
 
 def radius_moments(q_xyz: torch.Tensor, q_mask: torch.Tensor,
@@ -57,51 +76,53 @@ def radius_moments(q_xyz: torch.Tensor, q_mask: torch.Tensor,
     come from :func:`kernels.pca_moments` instead.
     """
     dev = q_xyz.device
-    qn = q_xyz.shape[0]
-    r2 = _per_query(radius, qn, dev) ** 2
+    shape = q_xyz.shape[:-1]
+    r2 = _per_query(radius, shape, dev) ** 2
     with_close = close_r2 is not None
     if with_close:
-        close_r2 = _per_query(close_r2, qn, dev)
+        close_r2 = _per_query(close_r2, shape, dev)
 
-    cols = [torch.ones((p_xyz.shape[0], 1), dtype=torch.float32,
+    cols = [torch.ones((*p_xyz.shape[:-1], 1), dtype=torch.float32,
                        device=dev)]
     if p_feats is not None:
         cols.append(p_feats.to(torch.float32))
-    feat_stack = torch.cat(cols, dim=1).contiguous()
+    feat_stack = torch.cat(cols, dim=-1).contiguous()
     sums, csums = kernels.moments(q_xyz.contiguous(), p_xyz.contiguous(),
                                   p_mask.contiguous(), r2, feat_stack,
                                   close_r2)
-    qmask_f = q_mask.to(torch.float32)[:, None]
+    qmask_f = q_mask.to(torch.float32)[..., None]
     sums = sums * qmask_f
-    out = {"count": sums[:, 0]}
+    out = {"count": sums[..., 0]}
     if p_feats is not None:
-        out["feat_sum"] = sums[:, 1:]
+        out["feat_sum"] = sums[..., 1:]
     if with_close:
         csums = csums * qmask_f
-        out["close_count"] = csums[:, 0]
+        out["close_count"] = csums[..., 0]
         if p_feats is not None:
-            out["close_feat_sum"] = csums[:, 1:]
+            out["close_feat_sum"] = csums[..., 1:]
     return out
 
 
 def cov_from_moments(count: torch.Tensor, sum_xyz: torch.Tensor,
                      sum_outer: torch.Tensor) -> torch.Tensor:
-    """[Q] count, [Q,3] sum x, [Q,6] sum xx^T (upper) -> [Q,3,3] covariance."""
-    n = torch.clamp(count, min=1.0)[:, None]
+    """[..., Q] count, [..., Q,3] sum x, [..., Q,6] sum xx^T (upper) ->
+    [..., Q,3,3] covariance."""
+    n = torch.clamp(count, min=1.0)[..., None]
     mean = sum_xyz / n
     exx = sum_outer / n
-    xx, xy, xz, yy, yz, zz = (exx[:, i] for i in range(6))
-    mx, my, mz = mean[:, 0], mean[:, 1], mean[:, 2]
+    xx, xy, xz, yy, yz, zz = (exx[..., i] for i in range(6))
+    mx, my, mz = mean[..., 0], mean[..., 1], mean[..., 2]
     return torch.stack([
         xx - mx * mx, xy - mx * my, xz - mx * mz,
         xy - mx * my, yy - my * my, yz - my * mz,
         xz - mx * mz, yz - my * mz, zz - mz * mz,
-    ], dim=-1).reshape(-1, 3, 3)
+    ], dim=-1).reshape(*count.shape, 3, 3)
 
 
 def nearest_neighbor_grouped(problems) -> list:
     """Brute-force 1-NN for each ``(q_xyz, q_mask, p_xyz, p_mask)`` of
-    ``problems``, in one kernel launch (per 8 problems) on the card:
+    ``problems``, in one kernel launch (per 48 problems, a batch entry
+    counting as one) on the card:
     ``[(idx [Q] int32, sqdist [Q] f32), ...]``.  Invalid queries and
     queries without valid support get sqdist = the 3.0e38 sentinel."""
     return kernels.nn_grouped([tuple(t.contiguous() for t in pr)
@@ -121,21 +142,24 @@ def normal_shooting_neighbor(q_xyz: torch.Tensor, q_dir: torch.Tensor,
     for it either."""
     gate2 = float(gate_r) ** 2 if not torch.is_tensor(gate_r) \
         else gate_r.to(torch.float32) ** 2
-    inval = torch.where(p_mask, 0.0, _BIG)[None, :]
+    if torch.is_tensor(gate2) and gate2.dim() > 0:  # one per batch entry
+        gate2 = gate2[..., None, None]
+    inval = torch.where(p_mask, 0.0, _BIG)[..., None, :]
     idx_parts, best_parts = [], []
-    for s in range(0, q_xyz.shape[0], chunk):
-        qc, nc = q_xyz[s:s + chunk], q_dir[s:s + chunk]
+    for s in range(0, q_xyz.shape[-2], chunk):
+        qc, nc = q_xyz[..., s:s + chunk, :], q_dir[..., s:s + chunk, :]
         d2 = pairwise_sqdist(qc, p_xyz)
-        proj = nc @ p_xyz.T - torch.sum(nc * qc, dim=-1, keepdim=True)
+        proj = _rows_dot(nc, p_xyz) - torch.sum(nc * qc, dim=-1,
+                                                 keepdim=True)
         perp2 = torch.clamp(d2 - proj * proj, min=0.0)
         score = perp2 + torch.where(d2 > gate2, _BIG, 0.0) + inval
-        idx = torch.argmin(score, dim=1)
-        best_d2 = torch.gather(d2, 1, idx[:, None])[:, 0]
-        best_sc = torch.gather(score, 1, idx[:, None])[:, 0]
+        idx = torch.argmin(score, dim=-1)
+        best_d2 = torch.gather(d2, -1, idx[..., None])[..., 0]
+        best_sc = torch.gather(score, -1, idx[..., None])[..., 0]
         idx_parts.append(idx.to(torch.int32))
         best_parts.append(torch.where(best_sc >= _BIG, _BIG, best_d2))
-    best = torch.where(q_mask, torch.cat(best_parts), _BIG)
-    return torch.cat(idx_parts), best
+    best = torch.where(q_mask, torch.cat(best_parts, -1), _BIG)
+    return torch.cat(idx_parts, -1), best
 
 
 def knn_class_counts(q_xyz: torch.Tensor, q_mask: torch.Tensor,
@@ -156,24 +180,23 @@ def knn_class_counts(q_xyz: torch.Tensor, q_mask: torch.Tensor,
     ``far_counts [Q,C]``, ``int_sum [Q]``.
     """
     dev = q_xyz.device
-    qn = q_xyz.shape[0]
-    r = _per_query(radius, qn, dev)
+    r = _per_query(radius, q_xyz.shape[:-1], dev)
     r2 = r ** 2
     m1 = radius_moments(q_xyz, q_mask, p_xyz, p_mask, r)
     count1 = torch.clamp(m1["count"], min=1.0)
     r2s = r2 * torch.clamp(float(k) / count1, max=1.0)
     feats = torch.cat([class_onehot.to(torch.float32),
-                       p_intensity[:, None]], dim=1)
+                       p_intensity[..., None]], dim=-1)
     m2 = radius_moments(q_xyz, q_mask, p_xyz, p_mask, torch.sqrt(r2s),
                         p_feats=feats,
                         close_r2=torch.clamp(r2s, max=float(close_r2)))
     n_c = class_onehot.shape[-1]
-    total_c = m2["feat_sum"][:, :n_c]
-    close_c = m2["close_feat_sum"][:, :n_c]
+    total_c = m2["feat_sum"][..., :n_c]
+    close_c = m2["close_feat_sum"][..., :n_c]
     qf = q_mask.to(torch.float32)
     return {
         "count": m2["count"] * qf,
-        "close_counts": close_c * qf[:, None],
-        "far_counts": (total_c - close_c) * qf[:, None],
-        "int_sum": m2["feat_sum"][:, n_c] * qf,
+        "close_counts": close_c * qf[..., None],
+        "far_counts": (total_c - close_c) * qf[..., None],
+        "int_sum": m2["feat_sum"][..., n_c] * qf,
     }

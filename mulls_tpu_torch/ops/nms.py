@@ -23,23 +23,25 @@ def non_max_suppress(xyz: torch.Tensor, salience: torch.Tensor,
                      mask: torch.Tensor, radius: float, iterations: int = 3,
                      chunk: int = 2048) -> torch.Tensor:
     """Returns the keep mask. Ties broken by index (earlier wins), which
-    mirrors the reference's stable sort order."""
-    n = xyz.shape[0]
+    mirrors the reference's stable sort order.  Leading dimensions of
+    ``xyz`` [..., n, 3] are batch entries, each suppressed on its own."""
+    n = xyz.shape[-2]
     r2 = radius * radius
     idx = torch.arange(n, dtype=torch.int64, device=xyz.device)
     # strict priority: larger salience wins; ties -> smaller index wins
     prio = torch.where(mask, salience, -float("inf"))
 
     def stronger_neighbor_exists(keep):
-        keep_f = keep & mask
+        keep_f = (keep & mask)[..., None, :]
+        pr = prio[..., None, :]
         parts = []
         for s in range(0, n, chunk):
-            qx, qp, qi = xyz[s:s + chunk], prio[s:s + chunk], idx[s:s + chunk]
+            qx, qi = xyz[..., s:s + chunk, :], idx[s:s + chunk, None]
+            qp = prio[..., s:s + chunk, None]
             close = pairwise_sqdist(qx, xyz) < r2
-            stronger = (prio[None, :] > qp[:, None]) | (
-                (prio[None, :] == qp[:, None]) & (idx[None, :] < qi[:, None]))
-            parts.append(torch.any(close & stronger & keep_f[None, :], dim=1))
-        return torch.cat(parts)
+            stronger = (pr > qp) | ((pr == qp) & (idx < qi))
+            parts.append(torch.any(close & stronger & keep_f, dim=-1))
+        return torch.cat(parts, dim=-1)
 
     keep = mask
     for _ in range(iterations):

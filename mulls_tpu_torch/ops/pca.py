@@ -38,10 +38,10 @@ def _part1by1(v: torch.Tensor) -> torch.Tensor:
 def morton_order(xyz: torch.Tensor, res: float = 4.0) -> torch.Tensor:
     """Permutation placing spatially-adjacent points in adjacent rows (2D
     Morton curve over ``res``-metre cells), stable like ``jnp.argsort``."""
-    gx = torch.clamp((xyz[:, 0] + 512.0) / res, 0, 65535).to(torch.int32)
-    gy = torch.clamp((xyz[:, 1] + 512.0) / res, 0, 65535).to(torch.int32)
+    gx = torch.clamp((xyz[..., 0] + 512.0) / res, 0, 65535).to(torch.int32)
+    gy = torch.clamp((xyz[..., 1] + 512.0) / res, 0, 65535).to(torch.int32)
     code = (_part1by1(gx) << 1) | _part1by1(gy)
-    return torch.argsort(code, stable=True)
+    return torch.argsort(code, dim=-1, stable=True)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -140,8 +140,10 @@ def pca_features(q_xyz: torch.Tensor, q_mask: torch.Tensor,
                  min_k: int, distance_adaptive: bool = False,
                  unit_dist: float = 30.0) -> PcaFeatures:
     """Radius PCA of every query against the support set (all points within
-    the radius — the reference's documented deviation from its K cap)."""
-    r = torch.full((q_xyz.shape[0],), radius, dtype=torch.float32,
+    the radius — the reference's documented deviation from its K cap).
+    Leading dimensions are batch entries: one ``pca_moments`` launch for
+    all of them."""
+    r = torch.full(q_xyz.shape[:-1], radius, dtype=torch.float32,
                    device=q_xyz.device)
     if distance_adaptive:
         # r' = sqrt(d/unit) * r for d > unit (`pca.hpp:314-324`)
@@ -151,7 +153,7 @@ def pca_features(q_xyz: torch.Tensor, q_mask: torch.Tensor,
                                       p_mask.contiguous(), r * r)
     qf = q_mask.to(torch.float32)
     count = cnt * qf
-    cov = nbr.cov_from_moments(count, sx * qf[:, None], so * qf[:, None])
+    cov = nbr.cov_from_moments(count, sx * qf[..., None], so * qf[..., None])
     # the closed form in float64, then back to float32: in float32 its
     # arccos near a repeated eigenvalue (a plane's l1 ~ l2) turns the last
     # ulp of the covariance into ~1e-4 of curvature, so the order in which
@@ -159,16 +161,16 @@ def pca_features(q_xyz: torch.Tensor, q_mask: torch.Tensor,
     vals, vecs = eigh_sym3x3(cov.double())
     vals, vecs = vals.float(), vecs.float()
     vals = torch.clamp(vals, min=0.0)
-    s = torch.clamp(vals[:, 0] + vals[:, 1] + vals[:, 2], min=_EPS)
-    l1 = torch.clamp(vals[:, 0], min=_EPS)
+    s = torch.clamp(vals[..., 0] + vals[..., 1] + vals[..., 2], min=_EPS)
+    l1 = torch.clamp(vals[..., 0], min=_EPS)
     return PcaFeatures(
         count=count,
         eigvals=vals,
         principal=vecs[..., 0],
         normal=vecs[..., 2],
-        curvature=vals[:, 2] / s,
-        linearity=(vals[:, 0] - vals[:, 1]) / l1,
-        planarity=(vals[:, 1] - vals[:, 2]) / l1,
-        sphericity=vals[:, 2] / l1,
+        curvature=vals[..., 2] / s,
+        linearity=(vals[..., 0] - vals[..., 1]) / l1,
+        planarity=(vals[..., 1] - vals[..., 2]) / l1,
+        sphericity=vals[..., 2] / l1,
         valid=q_mask & (count > min_k),
     )

@@ -9,6 +9,9 @@
   facade/beam (`cfilter.hpp:551-605`).
 * :func:`random_downsample` — a random fixed budget (the baselines' frame
   downsample).
+
+Every function takes leading batch dimensions (``[S, N, 3]``): each batch
+entry gets the mask of its call alone.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 
 import torch
 
+from mulls_tpu_torch.core.batch import offsets
 from mulls_tpu_torch.core.draws import Draws
 
 _MASK32 = 0xFFFFFFFF
@@ -78,13 +82,18 @@ def voxel_downsample_mask(xyz: torch.Tensor, mask: torch.Tensor,
     own index into its hashed slot with a min reduction and survives if it
     won the slot.  Hash collisions merge distinct voxels (<7% at 131k
     points in a 1M-slot table)."""
-    n = xyz.shape[0]
+    n = xyz.shape[-2]
+    lead = tuple(xyz.shape[:-2])
     ijk = torch.floor(xyz / resolution).to(torch.int32)
     h = hash_ijk(ijk, table_size)
+    if lead:  # each batch entry its own table
+        h = h + offsets(lead, table_size, xyz.device)
     idx = torch.arange(n, dtype=torch.int64, device=xyz.device)
     slot_val = torch.where(mask, idx, n)
-    table = torch.full((table_size,), n, dtype=torch.int64, device=xyz.device)
-    table.scatter_reduce_(0, h, slot_val, "amin", include_self=True)
+    table = torch.full((math.prod(lead) * table_size,), n,
+                       dtype=torch.int64, device=xyz.device)
+    table.scatter_reduce_(0, h.reshape(-1), slot_val.reshape(-1), "amin",
+                          include_self=True)
     return mask & (table[h] == idx)
 
 
@@ -94,9 +103,10 @@ def random_downsample(mask: torch.Tensor, keep_num: int, draws: Draws
     (parity: `random_downsample_pcl`; the reference draws at
     `ops/voxel.py:109`).  The k-th largest score decides what survives, so
     the tie order of ``topk`` changes nothing."""
-    n = mask.shape[0]
-    score = torch.where(mask, draws.uniform((n,)).to(mask.device), -1.0)
-    kth = torch.topk(score, min(keep_num, n)).values[-1]
+    n = mask.shape[-1]
+    score = torch.where(mask, draws.uniform(mask.shape).to(mask.device),
+                        -1.0)
+    kth = torch.topk(score, min(keep_num, n), dim=-1).values[..., -1:]
     return mask & (score >= torch.clamp(kth, min=0.0))
 
 
@@ -112,11 +122,11 @@ def xy_normal_balanced_mask(normal: torch.Tensor, mask: torch.Tensor,
     az = torch.atan2(v[..., 1], v[..., 0])  # [0, pi)
     sector = torch.clamp((az / (math.pi / sector_num)).to(torch.int32),
                          0, sector_num - 1)
-    k = min(keep_per_sector, mask.shape[0])
+    k = min(keep_per_sector, mask.shape[-1])
     keep = torch.zeros_like(mask)
     for s in range(sector_num):
         m_s = mask & (sector == s)
         score = torch.where(m_s, u, -1.0)
-        kth = torch.topk(score, k).values[-1]
+        kth = torch.topk(score, k, dim=-1).values[..., -1:]
         keep = keep | (m_s & (score >= torch.clamp(kth, min=0.0)))
     return keep

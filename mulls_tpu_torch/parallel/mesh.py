@@ -141,11 +141,11 @@ def batched_icp(sources: Dict[str, FeatureCloud],
                 targets: Dict[str, FeatureCloud], guesses: torch.Tensor,
                 cfg: RegConfig, max_iter: int) -> List[RegResult]:
     """``mm_lls_icp`` over a leading batch axis of cloud dicts
-    ([B, N, ...] leaves) and ``guesses`` [B, 4, 4], one registration after
-    another (the reference's ``vmap``)."""
-    return [mm_lls_icp(_index(sources, b), _index(targets, b), cfg,
-                       guesses[b], max_iter)
-            for b in range(guesses.shape[0])]
+    ([B, N, ...] leaves) and ``guesses`` [B, 4, 4]: the B registrations as
+    one batched call (the reference's ``vmap``), each with the result of
+    its call alone; one ``RegResult`` a pair."""
+    res = mm_lls_icp(sources, targets, cfg, guesses, max_iter)
+    return [_index(res, b) for b in range(guesses.shape[0])]
 
 
 def _pair_graph(node_t, node_q, edge_i, edge_j, T: torch.Tensor,

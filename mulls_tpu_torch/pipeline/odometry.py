@@ -14,6 +14,17 @@ tensor, one sync per decision; everything else stays masked selects on the
 device.  Failure handling follows the reference (`mulls_slam.cpp:686-693`):
 on a negative registration code the frame falls back to the motion-model
 guess.
+
+The step is written over leading batch dimensions: a state and a frame
+with a leading ``[S]`` (:func:`stack_states`, ``StackedDraws``) step S
+sequences in lockstep as one, every operation and kernel once for all S
+(``parallel/multiseq.py``), each sequence with the bits of its step
+alone.  The batched step takes its frame counter from the host
+(``slam_step(..., frame=i)``): in lockstep it is the same for every
+sequence, so the warm-up and refresh branches read no tensor.  The host
+branches of the recovery ladder, the mover veto and the yaw sweep read
+0-d tensors and run without a batch only (the multi-sequence config turns
+them off, as the reference's does).
 """
 
 from __future__ import annotations
@@ -33,8 +44,9 @@ from mulls_tpu_torch.core import se3
 from mulls_tpu_torch.core.cloud import (FeatureCloud, FeatureFrame,
                                         PackedRawCloud, VertexDescriptors,
                                         pack_raw_host, unpack_raw)
+from mulls_tpu_torch.core.batch import matmul, where
 from mulls_tpu_torch.core.device import resolve_device
-from mulls_tpu_torch.core.draws import Draws, GeneratorDraws
+from mulls_tpu_torch.core.draws import Draws, GeneratorDraws, StackedDraws
 from mulls_tpu_torch.core.tree import Struct, tree_map, tree_where
 from mulls_tpu_torch.frontend.features import extract_features
 from mulls_tpu_torch.frontend.icp import RegResult, mm_lls_icp
@@ -81,9 +93,9 @@ class StepOut(Struct):
     @staticmethod
     def pack_vec(T_rel, sigma, code, confidence, iterations):
         return torch.cat([
-            T_rel[:3, :].reshape(-1),
+            T_rel[..., :3, :].reshape(*T_rel.shape[:-2], 12),
             torch.stack([sigma, code.to(torch.float32), confidence,
-                         iterations.to(torch.float32)])])
+                         iterations.to(torch.float32)], -1)], -1)
 
     @staticmethod
     def unpack_vecs(vecs: np.ndarray):
@@ -141,6 +153,17 @@ def init_state(cfg: MullsConfig, device="cuda",
         conf_ema=_scalar(-1.0, torch.float32, dev),
         model_age=_scalar(99, torch.int32, dev),
     )
+
+
+def stack_states(states: List[SlamState]) -> SlamState:
+    """S states as one batched state: every tensor stacked on a new leading
+    axis, the draws as one ``StackedDraws`` (each sequence keeps its own
+    stream).  Port of the reference's ``stack_states``
+    (``mulls_tpu/parallel/multiseq.py:48-49``)."""
+    draws = StackedDraws([st.draws for st in states])
+    bare = [st.replace(draws=None) for st in states]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *bare)
+    return stacked.replace(draws=draws)
 
 
 def state_from_numpy(tree: dict, cfg: MullsConfig, device="cuda",
@@ -210,8 +233,9 @@ def _feature_stage(state: SlamState, raw, cfg: MullsConfig, k_feat: Draws):
     # self-adaptive parameter update (`cfilter.hpp:2416-2444`)
     ng_rate = state.nonground_rate
     if cfg.feature.adaptive_parameters_on:
-        ng_count = (torch.sum(frame.down["facade"].mask)
-                    + torch.sum(frame.down["pillar"].mask)).to(torch.float32)
+        ng_count = (torch.sum(frame.down["facade"].mask, -1)
+                    + torch.sum(frame.down["pillar"].mask, -1)
+                    ).to(torch.float32)
         min_exp = float(cfg.feature.adaptive_nonground_min_expected)
         lowered = torch.clamp(ng_rate - min_exp
                               / torch.clamp(ng_count, min=1.0), min=1.0)
@@ -237,19 +261,23 @@ def _fractional_step(T_base: torch.Tensor, T_full: torch.Tensor,
     return T_base @ delta_f
 
 
-def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
+def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig,
+                    frame_no: Optional[int] = None):
     """Stage 2: scan-to-scan + scan-to-map MULLS-ICP with cadence, in-frame
     retry, mover veto, yaw re-acquisition, recovery bookkeeping, pose
-    composition (reference `odometry.py:219-602`)."""
+    composition (reference `odometry.py:219-602`).  ``frame_no``: the
+    host's frame counter, which the warm-up branch reads in place of
+    ``state.frame_idx`` when given."""
     dev = state.pose.device
     f32 = torch.float32
-    eye = torch.eye(4, dtype=f32, device=dev)
+    lead = tuple(state.pose.shape[:-2])
+    eye = torch.eye(4, dtype=f32, device=dev).expand(*lead, 4, 4)
     first = state.frame_idx == 0
     if cfg.map.initial_guess_mode == 2:
         guess = state.T_prev
     elif cfg.map.initial_guess_mode == 1:
         guess = eye.clone()
-        guess[:3, 3] = state.T_prev[:3, 3]
+        guess[..., :3, 3] = state.T_prev[..., :3, 3]
     else:
         guess = eye
     guess0 = guess  # raw motion-model prior (pre-s2s) for the sanity veto
@@ -260,12 +288,14 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
         s2s = mm_lls_icp(frame.down, state.prev_frame, cfg.reg, guess,
                          max_iter=cfg.reg.reg_max_iter_num_s2s,
                          dis_thre_add=state.add_length)
-        guess = torch.where(s2s.process_code == 1, s2s.transform, guess)
+        guess = where(s2s.process_code == 1, s2s.transform, guess)
         s2m_add = torch.where(s2s.process_code == 1, 1.0, 0.8)
     elif _carries_prev_frame(cfg) and cfg.map.warmup_s2s_on:
         # the reference's always-on warm-up s2s for the first frames
-        # (`mulls_slam.cpp:631`); its lax.cond is a host branch here
-        if bool(warm):
+        # (`mulls_slam.cpp:631`); its lax.cond is a host branch here, on
+        # the host's frame counter when the caller keeps one
+        if (frame_no <= cfg.map.initial_scan2scan_frame_num
+                if frame_no is not None else bool(warm)):
             s2s = mm_lls_icp(frame.down, state.prev_frame, cfg.reg, guess,
                              max_iter=cfg.reg.reg_max_iter_num_s2s,
                              dis_thre_add=state.add_length + 1.0)
@@ -282,7 +312,7 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
     # scan-to-map cadence (`mulls_slam.cpp:631,667`)
     have_s2s = (cfg.map.scan_to_scan_module_on
                 or (_carries_prev_frame(cfg) and cfg.map.warmup_s2s_on))
-    cadence_sel = torch.tensor(False, device=dev)
+    cadence_sel = torch.zeros((), dtype=torch.bool, device=dev)
     if have_s2s and (cfg.map.s2m_frequency > 1
                      or cfg.map.initial_scan2scan_frame_num > 0):
         idx = state.frame_idx
@@ -290,7 +320,7 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
                    | (idx % cfg.map.s2m_frequency != 0))
         cadence_sel = use_s2s & (s2s.process_code == 1)
         res = res.replace(
-            transform=torch.where(cadence_sel, s2s.transform, res.transform),
+            transform=where(cadence_sel, s2s.transform, res.transform),
             sigma=torch.where(cadence_sel, s2s.sigma, res.sigma),
             process_code=torch.where(cadence_sel, s2s.process_code,
                                      res.process_code),
@@ -331,7 +361,7 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
         suspect_dyn = (model_warm & (res.process_code == 1)
                        & (dev0 > sanity_thre))
         dyn_gate2 = float(np.float32(cfg.map.dynamic_dist_thre_min)) ** 2
-        dyn_gate2 = torch.tensor(dyn_gate2, dtype=f32, device=dev)
+        dyn_gate2 = torch.full((), dyn_gate2, dtype=f32, device=dev)
 
         if bool(suspect_dyn):
             # hypothesis test (observability-weighted map support of the
@@ -377,7 +407,7 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
                               guess0, max_iter=cfg.reg.reg_max_iter_num_s2m,
                               dis_thre_add=s2m_add)
         else:
-            sup_res = sup_prior = torch.tensor(0.0, device=dev)
+            sup_res = sup_prior = torch.zeros((), device=dev)
             res2 = res
         # the deviant solve explains clearly more static structure than the
         # prior: the platform genuinely moved — the original result stands
@@ -396,7 +426,7 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
     # --- rotation-tolerant post-blackout re-acquisition (reference
     # `odometry.py:465-523`; keyed on inframe_recovery_on like the
     # reference)
-    reacq_taken = torch.tensor(False, device=dev)
+    reacq_taken = torch.zeros((), dtype=torch.bool, device=dev)
     if (cfg.map.inframe_recovery_on and cfg.map.yaw_reacquire_on
             and cfg.map.initial_guess_mode == 2
             and cfg.map.yaw_reacquire_step_d > 0):
@@ -453,15 +483,16 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
                                 0.98 * ema + 0.02 * res.confidence,
                                 0.9 * ema + 0.1 * res.confidence)),
         ema)
-    T_rel = torch.where(first, eye, torch.where(failed, guess, res.transform))
+    T_rel = where(first, eye, where(failed, guess, res.transform))
     if cfg.map.zupt_on:
         # zero-velocity update (`common_nav.cpp:6-22`)
-        stationary = torch.linalg.norm(T_rel[:3, 3]) < cfg.map.zupt_tran_thre
+        stationary = (torch.linalg.norm(T_rel[..., :3, 3], dim=-1)
+                      < cfg.map.zupt_tran_thre)
         T_z = T_rel.clone()
-        T_z[2, 3] = 0.0
-        T_rel = torch.where(stationary, T_z, T_rel)
+        T_z[..., 2, 3] = 0.0
+        T_rel = where(stationary, T_z, T_rel)
     # the model PERSISTS through failures (T_rel is then the prior itself)
-    T_prev_next = torch.where(first, eye, T_rel)
+    T_prev_next = where(first, eye, T_rel)
     model_age_next = torch.where(res.process_code == 1, 0,
                                  state.model_age + 1).to(torch.int32)
     # a re-acquired step hands the next frame `prior (+) correction/n` and
@@ -475,13 +506,12 @@ def _register_stage(state: SlamState, frame: FeatureFrame, cfg: MullsConfig):
         model_age_next = torch.where(reacq_taken, 4,
                                      model_age_next).to(torch.int32)
 
-    pose = state.pose @ T_rel
-    pose = pose.clone()
-    pose[:3, :3] = se3.orthonormalize(pose[:3, :3])
+    pose = matmul(state.pose, T_rel)
+    pose[..., :3, :3] = se3.orthonormalize(pose[..., :3, :3])
 
     # dynamic-object gate distance scales with per-frame motion
     # (`mulls_slam.cpp:439`); floored in update_local_map
-    dyn_max = 1.5 * torch.linalg.norm(T_rel[:3, 3])
+    dyn_max = 1.5 * torch.linalg.norm(T_rel[..., :3, 3], dim=-1)
     removal_ok = (~failed) & (
         res.confidence >= cfg.map.dynamic_removal_confidence_drop * baseline)
     code = torch.where(first, 1, res.process_code).to(torch.int32)
@@ -504,14 +534,18 @@ def _gate_append(cfg: MullsConfig, out: StepOut):
 
 
 def _map_stage(state: SlamState, frame: FeatureFrame, T_rel, dyn_max,
-               removal_ok, cfg: MullsConfig, k_map: Draws, append_ok=True):
+               removal_ok, cfg: MullsConfig, k_map: Draws, append_ok=True,
+               frame_no: Optional[int] = None):
     """Stage 3: dynamic removal + local-map append/crop/rebudget + periodic
-    direction-vector refresh (`mulls_slam.cpp:431-435`)."""
+    direction-vector refresh (`mulls_slam.cpp:431-435`), on the host's
+    frame counter ``frame_no`` when the caller keeps one."""
     local_map = update_local_map(state.local_map, frame, T_rel, dyn_max,
                                  cfg.map, k_map, removal_enabled=removal_ok,
                                  append_enabled=append_ok)
     freq = cfg.map.local_map_recalculation_frequency
-    if 0 < freq < 99999 and (int(state.frame_idx) + 1) % freq == 0:
+    if frame_no is None:
+        frame_no = int(state.frame_idx)
+    if 0 < freq < 99999 and (frame_no + 1) % freq == 0:
         local_map = refresh_linear_map_vectors(local_map)
     return local_map
 
@@ -534,26 +568,32 @@ def _undistort_frame(frame: FeatureFrame, T_rel, cfg: MullsConfig
                          full={k: und(c) for k, c in frame.full.items()})
 
 
-def slam_step(state: SlamState, raw, cfg: MullsConfig, timer=None):
+def slam_step(state: SlamState, raw, cfg: MullsConfig, timer=None,
+              frame: Optional[int] = None):
     """One frame: (new state, StepOut).  ``raw`` is a ``PackedRawCloud`` or
-    a ``RawCloud`` on the state's device.  ``timer(name)``, when given, is a
-    context manager wrapped around the feature / reg / map stages."""
+    a ``RawCloud`` on the state's device (both batched, ``[S, ...]``, for a
+    batched state).  ``timer(name)``, when given, is a context manager
+    wrapped around the feature / reg / map stages.  ``frame``: the host's
+    count of the frames the state has stepped (``state.frame_idx``, which
+    the warm-up and refresh branches then do not read back)."""
     span = timer if timer is not None else (
         lambda name: contextlib.nullcontext())
     k_next, k_feat, k_map = state.draws.split(3)
     with span("feature"):
-        frame, ng_rate = _feature_stage(state, raw, cfg, k_feat)
+        feats, ng_rate = _feature_stage(state, raw, cfg, k_feat)
     with span("reg"):
         (out, T_prev_next, add_next, ema_next, dyn_max,
-         removal_ok, model_age_next) = _register_stage(state, frame, cfg)
+         removal_ok, model_age_next) = _register_stage(state, feats, cfg,
+                                                       frame_no=frame)
     with span("map"):
-        frame = _undistort_frame(frame, out.T_rel, cfg)
-        local_map = _map_stage(state, frame, out.T_rel, dyn_max, removal_ok,
-                               cfg, k_map, append_ok=_gate_append(cfg, out))
+        feats = _undistort_frame(feats, out.T_rel, cfg)
+        local_map = _map_stage(state, feats, out.T_rel, dyn_max, removal_ok,
+                               cfg, k_map, append_ok=_gate_append(cfg, out),
+                               frame_no=frame)
     new_state = SlamState(
         local_map=local_map, pose=out.pose, T_prev=T_prev_next,
         frame_idx=state.frame_idx + 1, draws=k_next,
-        prev_frame=frame.full if _carries_prev_frame(cfg) else None,
+        prev_frame=feats.full if _carries_prev_frame(cfg) else None,
         nonground_rate=ng_rate, add_length=add_next, conf_ema=ema_next,
         model_age=model_age_next)
     return new_state, out
@@ -706,7 +746,7 @@ class OdometryPipeline:
                                                 with_ts=ship_ts,
                                                 segment=self.segment)):
             state, out = slam_step(state, raw, cfg,
-                                   timer=timer if profile else None)
+                                   timer=timer if profile else None, frame=i)
             pending.append(out.vec)
             if profile:
                 for name, ms in spans.items():

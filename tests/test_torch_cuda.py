@@ -94,11 +94,15 @@ def test_nn_grouped_kernel_equals_plain_bit_for_bit(dev, n):
 
 
 def test_nn_grouped_kernel_edge_members_and_splitting(dev):
-    """An empty member, Q = 1, P = 1, and more than 8 problems with
-    queries (two launches): every member equals its plain version."""
-    probs = [_nn_problem(dev, 40 + k, qn, pn) for k, (qn, pn) in enumerate(
-        [(0, 30), (1, 1), (1, 5000), (300, 1), (64, 2048), (1200, 8192),
-         (200, 512), (800, 6144), (400, 1536), (129, 1025)])]
+    """An empty member, Q = 1, P = 1, and more problems with queries than
+    one launch takes (NN_MAX_GROUP: two launches): every member equals its
+    plain version."""
+    sizes = [(0, 30), (1, 1), (1, 5000), (300, 1), (64, 2048), (1200, 8192),
+             (200, 512), (800, 6144), (400, 1536), (129, 1025)]
+    sizes = sizes * 6  # 6 empty, 54 with queries
+    assert kernels.NN_MAX_GROUP < len(sizes) - 6 <= 2 * kernels.NN_MAX_GROUP
+    probs = [_nn_problem(dev, 40 + k, qn, pn)
+             for k, (qn, pn) in enumerate(sizes)]
     kernels.reset_launch_counts()
     got = kernels.nn_grouped(probs)
     want = kernels.nn_grouped_plain(probs)
@@ -123,6 +127,69 @@ def test_nn_and_moments_kernels_repeat_their_bits(dev):
     a = kernels.moments(q, p, pm, r2, feats, 0.3 * r2)
     b = kernels.moments(q, p, pm, r2, feats, 0.3 * r2)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _batch(dev, seed, n_seq, qn, pn, c=6):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    q = t(rng.uniform(-8, 8, (n_seq, qn, 3)).astype(np.float32))
+    p = t(rng.uniform(-8, 8, (n_seq, pn, 3)).astype(np.float32))
+    qm = t(rng.uniform(size=(n_seq, qn)) < 0.9)
+    pm = t(rng.uniform(size=(n_seq, pn)) < 0.8)
+    r2 = t(rng.uniform(0.3, 2.5, (n_seq, qn)).astype(np.float32))
+    f = t(rng.uniform(-1, 1, (n_seq, pn, c)).astype(np.float32))
+    return q, qm, p, pm, r2, f
+
+
+@pytest.mark.parametrize("n_seq", [1, 2, 3, 8])
+@pytest.mark.parametrize("qn,pn", [(1, 1), (200, 512), (1200, 8192),
+                                   (1025, 2049)])
+def test_batched_kernels_equal_single_launches_bit_for_bit(dev, n_seq, qn,
+                                                           pn):
+    """One launch for a batch of ``n_seq`` problems gives each entry the
+    bits of its own launch, for nn (grouped, two classes), moments (with
+    close sums) and pca_moments; one launch each."""
+    q, qm, p, pm, r2, f = _batch(dev, 7 * n_seq + qn, n_seq, qn, pn)
+    kernels.reset_launch_counts()
+    nn_b = kernels.nn_grouped([(q, qm, p, pm), (p, pm, q, qm)])
+    mom_b = kernels.moments(q, p, pm, r2, f, 0.4 * r2)
+    pca_b = kernels.pca_moments(q, p, pm, r2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        "nn": 1, "nn_grouped": 1, "moments": 1, "pca_moments": 1,
+        "count_within": 0}
+    for s in range(n_seq):
+        nn_s = kernels.nn_grouped([(q[s], qm[s], p[s], pm[s]),
+                                   (p[s], pm[s], q[s], qm[s])])
+        mom_s = kernels.moments(q[s], p[s], pm[s], r2[s], f[s],
+                                0.4 * r2[s])
+        pca_s = kernels.pca_moments(q[s], p[s], pm[s], r2[s])
+        for a, b in ((nn_b[0], nn_s[0]), (nn_b[1], nn_s[1]), (mom_b, mom_s),
+                     (pca_b, pca_s)):
+            for x, y in zip(a, b):
+                assert torch.equal(x[s], y), s
+        # and the plain version on the entry
+        ridx, rd2 = kernels.nn_plain(q[s], qm[s], p[s], pm[s])
+        assert torch.equal(nn_b[0][1][s], rd2)
+        rc, _, _ = kernels.pca_moments_plain(q[s], p[s], pm[s], r2[s])
+        assert torch.equal(pca_b[0][s], rc)
+
+
+def test_batched_nn_at_the_icp_shapes_of_eight_sequences(dev):
+    """Five ICP classes of eight sequences: 40 problems, one launch, each
+    entry its single launch's bits."""
+    shapes = [(800, 6144), (400, 1536), (1200, 8192), (200, 1024),
+              (200, 512)]
+    batches = [_batch(dev, 300 + k, 8, qn, pn)[:4]
+               for k, (qn, pn) in enumerate(shapes)]
+    kernels.reset_launch_counts()
+    got = kernels.nn_grouped(batches)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["nn"] == 1
+    for (q, qm, p, pm), (idx, d2) in zip(batches, got):
+        for s in range(8):
+            i1, d1 = kernels.nn(q[s], qm[s], p[s], pm[s])
+            assert torch.equal(idx[s], i1) and torch.equal(d2[s], d1)
 
 
 def test_nn_kernel_with_no_valid_support(dev):
@@ -979,7 +1046,7 @@ def _drives(n_seq, n_frames, seed=93):
 
 
 def test_multiseq_on_the_card_equals_each_run_alone(dev):
-    """Three sequences on a one-card mesh, stepped in turn, the last a
+    """Three sequences on a one-card mesh, stepped as one batch, the last a
     frame shorter: each equals ``OdometryPipeline`` alone bit for bit,
     registers every frame (host draws: the
     CPU's numbers, on which these drives register), and launched the front
