@@ -25,7 +25,10 @@ Phases (each prints its own line; any failure exits non-zero):
               passes; the frame PCA): one launch for all 8 against 8
               single launches bit for bit and the plain version on the
               last sequence, same bits twice, device and CUDA-event ms
-              beside the 8 single launches', bound 8 x the single one.
+              beside the 8 single launches', the plain version's and one
+              batched library call's over the same [8, ...] inputs
+              (cdist + min, or cdist + compare + fp32 matmul; timed
+              only), bound 8 x the single one.
 4. probe    — the roofline probe's two kernels against their plain
               versions on the card: ``count_within`` (a cell-grid count:
               the support sorted into cells of side sqrt(max r2), one
@@ -72,21 +75,27 @@ Phases (each prints its own line; any failure exits non-zero):
 8. slam     — ``SlamPipeline`` at full width with loop closure on (the
               default submap settings: 30 m submaps, min_submap_id_diff 8,
               the ceres PGO) over 208 frames, 1.2 laps, of the urban loop
-              world of ``tools/synthetic_accuracy_bench.py`` (copied here
-              as numpy), then the end-of-run refinement.  Checks >= 90 %
+              world of ``tools/synthetic_accuracy_bench.py`` (the port's
+              copy, ``mulls_tpu_torch/tools/worlds.py``), then the
+              end-of-run refinement.  Checks >= 90 %
               code 1, adjacent edges = submaps - 1, >= 1 loop edge and each
               within 0.5 m of the ground truth's relative pose, >= 1
               accepted PGO, end error <= 2 %, every kernel launched on the
               run and the back end's own nn launches > 0.  Prints frames/s
               beside the main phase's odometry-only rate and ms per
               boundary ladder, per loop candidate and per PGO.  Then
-              The same frames also run through odometry alone first, for
-              the rate without the back end, and the back end's m2m, loop
+              The first 64 of the same frames also run through odometry
+              alone first, for the rate without the back end (the first
+              corner included), and the back end's m2m, loop
               candidate and PGO are timed again alone on the card after
               the run.  Then ``nn_grouped`` at the map-to-map shapes of one ``pair_m2m``
               iteration between two of the run's submaps: bit-equal to the
               plain version, same bits twice, timed against its bound and
-              ``cdist`` + ``min``.
+              ``cdist`` + ``min``.  Then the run's first boundary that
+              added a loop edge, run twice on the card from the back end's
+              state kept just before it (``backend_to_numpy``, the
+              boundary's draws): the edges (i, j, kind, T, confidence),
+              the PGO's poses and every submap's pose equal bit for bit.
 9. agree-slam — ``SlamPipeline`` on the card and on the CPU at the parity
               tests' width with tests/test_pipeline.py's loop world and
               config and the same draws: the same submap spans and edges,
@@ -185,8 +194,19 @@ Phases (each prints its own line; any failure exits non-zero):
               over 4 full-width pairs of the main phase's frames on a one-
               and a four-entry mesh of the card: transforms bit-equal to
               four single ``mm_lls_icp`` calls, node updates within 1e-4.
+17. ladder  — the recovery ladder at full width against the reference's
+              record (``experiments/ladder_reference.json``, written by
+              ``experiments/bench_reference.py --ladder``): the warm state
+              after 16 stationary scans of the urban world (seed 0,
+              ``MullsConfig()``), stepped on the card with the port's
+              production draws, then one step for each of the record's
+              cases: a 40 deg wrong prior with model age 4 (the in-frame
+              retry, then the yaw sweep) and a prior 1.2 m off with age 0
+              (the mover veto's hypothesis test).  Equal codes and T_rel
+              within 2 cm / 0.2 deg of the record; ms per case, the ICP
+              runs of the step and the sweep's seeds that ran.
 
-The order of the run: 1-5, 11, 6, 7, 12, 13, 8, 9, 10, 14, 15, 16: the phases
+The order of the run: 1-5, 11, 6, 7, 12, 13, 8, 9, 10, 14, 15, 16, 17: the phases
 that read torch.profiler (3, 4, 7, 11, 13) come first.  Its traces have
 lost device events, in the kernel and probe phases of some runs and
 after the threaded SLAM runs of others, for a reason not known.  A timing
@@ -223,6 +243,12 @@ SEED = 0  # of the synthetic worlds, the scans and the draws
 def fail(msg: str, code: int = 1) -> int:
     print(f"[FAIL] {msg}", flush=True)
     return code
+
+
+def n_ops(ops) -> str:
+    """Device operations per call from ``roofline.device_ms``: None when
+    its traces lost events of several kernels (not measured)."""
+    return "not measured" if ops is None else f"{ops:.0f}"
 
 
 # --------------------------------------------------------------------------
@@ -456,8 +482,8 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
         b, by = bound_ms(flops, nbytes)
         print(f"[kernels] nn {qn}x{pn}: equal to the plain version bit for "
               f"bit, same bits twice; kernel {ms:.4f} ms on the device "
-              f"({ops:.0f} launch per call; {ev:.4f} ms per call with CUDA "
-              f"events), plain {plain:.4f} ms, cdist+min {lib:.4f} ms, "
+              f"({n_ops(ops)} launch per call; {ev:.4f} ms per call with "
+              f"CUDA events), plain {plain:.4f} ms, cdist+min {lib:.4f} ms, "
               f"bound {b:.5f} ms ({by})", flush=True)
         rows.append({"name": "nn", "shape": f"{qn}x{pn}", "max_abs_err": 0.0,
                      "ms": ms, "event_ms": ev, "plain_ms": plain,
@@ -482,11 +508,12 @@ def kernel_phase(scan: dict, world: np.ndarray, pose: np.ndarray, dev,
     shape = " + ".join(f"{qn}x{pn}" for qn, pn in icp_shapes)
     print(f"[kernels] nn_grouped {shape} ({pairs:.3g} pairs): equal to the "
           f"plain version bit for bit, same bits twice; one grouped launch "
-          f"{ms:.4f} ms on the device ({ops:.0f} launch per call; {ev:.4f} "
-          f"ms per call with CUDA events); five nn launches {five:.4f} ms on "
-          f"the device ({five_ops:.0f} launches; {five_ev:.4f} ms with CUDA "
-          f"events); plain {plain:.4f} ms, cdist+min per class {lib:.4f} "
-          f"ms, bound {b:.5f} ms ({by})", flush=True)
+          f"{ms:.4f} ms on the device ({n_ops(ops)} launch per call; "
+          f"{ev:.4f} ms per call with CUDA events); five nn launches "
+          f"{five:.4f} ms on the device ({n_ops(five_ops)} launches; "
+          f"{five_ev:.4f} ms with CUDA events); plain {plain:.4f} ms, "
+          f"cdist+min per class {lib:.4f} ms, bound {b:.5f} ms ({by})",
+          flush=True)
     rows.append({"name": "nn_grouped", "shape": shape, "max_abs_err": 0.0,
                  "ms": ms, "event_ms": ev, "five_nn_ms": five,
                  "five_nn_event_ms": five_ev, "plain_ms": plain,
@@ -598,26 +625,35 @@ def batched_kernel_phase(scan: dict, dev, seed: int) -> dict:
                     raise AssertionError(f"{name}: sequence {s}, output {k} "
                                          f"differs from its single launch")
 
-    def report(name, shape, fn, singles, flops, nbytes, extra=""):
+    def report(name, shape, fn, singles, plain, library, flops, nbytes,
+               extra=""):
+        """``plain``: the plain version over the [S, ...] inputs;
+        ``library``: one batched PyTorch computation of the same function
+        over them (timed only)."""
         if not same_bits(fn):
             raise AssertionError(f"{name} S = {S}: two launches differ")
         ms, ops = device_ms(fn, 20)
         ev = time_ms(fn, 20)
         s_ms, s_ops = device_ms(singles, 10)
         s_ev = time_ms(singles, 10)
+        plain_ms = time_ms(plain, 2)
+        lib = time_ms(library, 3)
         b, by = bound_ms(flops, nbytes)
         print(f"[kernels] {name} batched, S = {S} x {shape}: every sequence "
               f"equal to its single launch bit for bit{extra}, same bits "
-              f"twice; one launch {ms:.4f} ms on the device ({ops:.0f} "
+              f"twice; one launch {ms:.4f} ms on the device ({n_ops(ops)} "
               f"device operations a call; {ev:.4f} ms with CUDA events), "
               f"{S} single launches {s_ms:.4f} ms on the device "
-              f"({s_ops:.0f} operations; {s_ev:.4f} ms with CUDA events), "
+              f"({n_ops(s_ops)} operations; {s_ev:.4f} ms with CUDA events), "
+              f"the plain version {plain_ms:.4f} ms and the batched "
+              f"library call {lib:.4f} ms (CUDA events), "
               f"bound {b:.5f} ms ({by}; {S} x the single bound)",
               flush=True)
         return {"shape": f"{S} x {shape}", "sequences": S, "ms": ms,
                 "event_ms": ev, "device_ops_per_call": ops,
                 "single_launches_ms": s_ms, "single_launches_event_ms": s_ev,
-                "bound_ms": b, "bound_by": by, "max_abs_err": 0.0}
+                "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b,
+                "bound_by": by, "max_abs_err": 0.0}
 
     out = {}
     # --- nn: one ICP iteration's five classes for S sequences, one launch
@@ -651,6 +687,8 @@ def batched_kernel_phase(scan: dict, dev, seed: int) -> dict:
         lambda: kernels.nn_grouped(group),
         lambda: [kernels.nn_grouped([tuple(a[s] for a in pr)
                                      for pr in group]) for s in range(S)],
+        lambda: kernels.nn_grouped_plain(group),
+        lambda: cdist_min(group),  # cdist + min per class over [S, ...]
         9.0 * pairs, nbytes, extra=" and the plain version")
 
     # --- moments: the descriptor's two passes, 4096 x 20480 a sequence
@@ -693,6 +731,12 @@ def batched_kernel_phase(scan: dict, dev, seed: int) -> dict:
         lambda: [(kernels.moments(q[s], p[s], pm[s], r2[s], ones[s]),
                   kernels.moments(q[s], p[s], pm[s], r2s[s], f6[s], cr2[s]))
                  for s in range(S)],
+        lambda: (kernels.moments_plain(q, p, pm, r2, ones),
+                 kernels.moments_plain(q, p, pm, r2s, f6, cr2)),
+        # cdist + compare + fp32 matmul over [S, ...], both passes
+        lambda: (cdist_sums(q, p, pm, r2, ones, 512),
+                 cdist_sums(q, p, pm, r2s, f6, 512),
+                 cdist_sums(q, p, pm, cr2, f6, 512)),
         flops, nbytes, extra=f" (two launches a pair of passes); the "
                              f"plain version on the last's first 1024 "
                              f"queries: counts exact, max|err| {err:.3g}")
@@ -719,11 +763,18 @@ def batched_kernel_phase(scan: dict, dev, seed: int) -> dict:
     hits = float(cnt.sum())
     flops = 10.0 * S * 10240 * 20480 + 15.0 * hits
     nbytes = S * (10240 * 16 + 20480 * 13 + 10240 * 40)
+    # the yardstick: cdist + compare + fp32 matmul with a [S, P, 10] stack
+    # of 1, p and the upper terms of p p^T
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    stack = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
+                         y * y, y * z, z * z], -1)
     out["pca_moments"] = report(
         "pca_moments", "10240x20480", lambda: kernels.pca_moments(
             q, p, pm, r2),
         lambda: [kernels.pca_moments(q[s], p[s], pm[s], r2[s])
                  for s in range(S)],
+        lambda: kernels.pca_moments_plain(q, p, pm, r2),
+        lambda: cdist_sums(q, p, pm, r2, stack, 512),
         flops, nbytes, extra=f" (chunk {kernels.pca_chunk(10240, 20480)}, "
                              f"{hits / (S * 10240):.2f} hits a query); the "
                              f"plain version on the last's first 1024 "
@@ -822,20 +873,24 @@ def cdist_count(q, p, pm, r2, rows: int):
 def cdist_sums(q, p, pm, r2, feats, rows: int):
     """The library yardstick of moments and pca_moments (timed only):
     torch.cdist, compare, an fp32 matmul of the 0/1 adjacency with the
-    [P, C] features, in query slices of ``rows``."""
+    [P, C] features, in query slices of ``rows``; over leading batch
+    dimensions too (``q`` [..., Q, 3], ``feats`` [..., P, C])."""
     import torch
     r = r2.clamp(min=0).sqrt()
     return torch.cat([torch.matmul(
-        ((torch.cdist(q[s:s + rows], p) <= r[s:s + rows, None]) & pm).to(
-            torch.float32), feats) for s in range(0, q.shape[0], rows)])
+        ((torch.cdist(q[..., s:s + rows, :], p)
+          <= r[..., s:s + rows, None]) & pm[..., None, :]).to(
+            torch.float32), feats) for s in range(0, q.shape[-2], rows)],
+        dim=-2)
 
 
 def cdist_min(group):
     """The library yardstick of nn and nn_grouped (timed only): torch.cdist
-    and min for each problem, masked support moved out of reach."""
+    and min for each problem, masked support moved out of reach; over
+    leading batch dimensions too."""
     import torch
-    return [torch.cdist(q, torch.where(pm[:, None], p,
-                                       torch.full_like(p, 1e18))).min(dim=1)
+    return [torch.cdist(q, torch.where(pm[..., None], p,
+                                       torch.full_like(p, 1e18))).min(dim=-1)
             for q, _, p, pm in group]
 
 
@@ -1410,126 +1465,14 @@ def profile_phase(frames: list, cfg, dev, warm: int = 4, window: int = 4
 # phase 8: SLAM with loop closure at full width (the back end's main path)
 # --------------------------------------------------------------------------
 
-# copied from tools/synthetic_accuracy_bench.py (build_world,
-# loop_trajectory, simulate without its hard-world options) as numpy: this
-# script imports only the port
-
-def build_loop_world(rng: np.random.Generator, half: float = 120.0
-                     ) -> np.ndarray:
-    """City block: ground plane, building walls on a street grid with
-    piecewise facade depth, irregular lampposts, parked-car boxes."""
-    pts = []
-    n_g = 900_000
-    pts.append(np.stack([
-        rng.uniform(-half, half, n_g), rng.uniform(-half, half, n_g),
-        0.04 * rng.normal(size=n_g) - 1.73], -1))
-    for cx in (-60.0, 0.0, 60.0):
-        for cy in (-60.0, 0.0, 60.0):
-            w = 22.0
-            h = float(rng.uniform(4.0, 14.0))
-            n_w = 26_000
-            side = rng.integers(0, 4, n_w)
-            u = rng.uniform(-w, w, n_w)
-            prof = rng.uniform(-1.2, 1.2, (4, 11))
-            seg = np.clip(((u + w) / (2 * w) * 11).astype(int), 0, 10)
-            d = np.full(n_w, w) + prof[side, seg] \
-                + 0.03 * rng.normal(size=n_w)
-            wx = cx + np.where(side == 0, d, np.where(side == 1, -d, u))
-            wy = cy + np.where(side < 2, u, np.where(side == 2, d, -d))
-            pts.append(np.stack([wx, wy, rng.uniform(-1.5, h, n_w)], -1))
-    posts = []
-    for lane in (-31.0, -29.0, 29.0, 31.0):
-        x = -half + rng.uniform(2, 8)
-        while x < half:
-            posts.append((x + rng.uniform(-0.8, 0.8),
-                          lane + rng.uniform(-0.6, 0.6)))
-            posts.append((lane + rng.uniform(-0.6, 0.6),
-                          x + rng.uniform(-0.8, 0.8)))
-            x += rng.uniform(7.0, 14.0)
-    per = 90
-    for (px, py) in posts:
-        z = np.linspace(-1.6, 4.2, per)
-        pts.append(np.stack([px + 0.015 * rng.normal(size=per),
-                             py + 0.015 * rng.normal(size=per), z], -1))
-    for _ in range(60):
-        lane = rng.choice([-33.5, 33.5])
-        along = rng.uniform(-half + 5, half - 5)
-        cx2, cy2 = (along, lane) if rng.random() < 0.5 else (lane, along)
-        n_c = 700
-        pts.append(np.stack([cx2 + rng.uniform(-2.2, 2.2, n_c),
-                             cy2 + rng.uniform(-0.9, 0.9, n_c),
-                             rng.uniform(-1.7, -0.2, n_c)], -1))
-    return np.concatenate(pts).astype(np.float32)
-
-
-def loop_trajectory(n_frames: int, step: float) -> np.ndarray:
-    """Rounded-rectangle loop in the street lanes around the center block
-    (30 m half-side, 8 m corner arcs: one lap is 226.3 m)."""
-    L, r = 30.0, 8.0
-    straight = 2 * (L - r)
-    arc = 0.5 * np.pi * r
-    total = 4 * (straight + arc)
-
-    def at(sd):
-        sd = sd % total
-        quarter = straight + arc
-        edge = int(sd // quarter)
-        f = sd - edge * quarter
-        if f <= straight:
-            d = f - (L - r)
-            return [(d, -L, 0.0), (L, d, np.pi / 2), (-d, L, np.pi),
-                    (-L, -d, -np.pi / 2)][edge]
-        a = (f - straight) / r
-        base = edge * np.pi / 2
-        cx = [(L - r, -L + r), (L - r, L - r),
-              (-L + r, L - r), (-L + r, -L + r)][edge]
-        ang = base - np.pi / 2 + a
-        return (cx[0] + r * np.cos(ang), cx[1] + r * np.sin(ang), base + a)
-
-    poses = []
-    for k in range(n_frames):
-        x, y, yaw = at(k * step)
-        T = np.eye(4)
-        c, si = np.cos(yaw), np.sin(yaw)
-        T[:3, :3] = [[c, -si, 0], [si, c, 0], [0, 0, 1]]
-        T[:3, 3] = [x, y, 0.0]
-        poses.append(T)
-    return np.stack(poses)
-
-
-def simulate(world: np.ndarray, pose: np.ndarray, n_raw: int,
-             rng: np.random.Generator, sensor_range: float = 65.0) -> dict:
-    """One scan: the world within range, downsampled to n_raw, in the
-    sensor frame with 1 cm noise and a world-stable pseudo-intensity."""
-    inv = np.linalg.inv(pose)
-    c = pose[:3, 3]
-    rough = (np.abs(world[:, 0] - c[0]) < sensor_range + 2) \
-        & (np.abs(world[:, 1] - c[1]) < sensor_range + 2)
-    w = world[rough]
-    local = w @ inv[:3, :3].T + inv[:3, 3]
-    r = np.linalg.norm(local[:, :2], axis=1)
-    sel = np.where((r < sensor_range) & (r > 1.8))[0]
-    if len(sel) > n_raw:
-        sel = rng.choice(sel, n_raw, replace=False)
-    pts = local[sel] + 0.01 * rng.normal(size=(len(sel), 3))
-    out = np.zeros((n_raw, 3), np.float32)
-    out[:len(sel)] = pts
-    mask = np.zeros(n_raw, bool)
-    mask[:len(sel)] = True
-    inten = np.zeros(n_raw, np.float32)
-    ws = w[sel]
-    inten[:len(sel)] = np.abs(np.sin(0.7 * ws[:, 0])
-                              + np.cos(1.3 * ws[:, 1])) * 120.0
-    return {"xyz": out, "intensity": inten,
-            "ts_ratio": np.linspace(0, 1, n_raw, dtype=np.float32),
-            "mask": mask}
-
-
 # the SLAM drive: 1.3 m/frame around the loop in segments of 4 frames
 # closes submaps of ~31 m, and the 9th submap (id 8, min_submap_id_diff
 # away from the first) ends ~3 m from submap 0's end frame, well inside
 # the 15 m candidate radius; 208 frames = 270 m, 1.2 laps
 SLAM_FRAMES, SLAM_STEP, SLAM_SEGMENT = 208, 1.3, 4
+# the odometry-only rate on the drive's first frames (the whole drive took
+# ~185 s of a 1094 s run on a slow host)
+SLAM_ODO_FRAMES = 64
 LOOP_EDGE_BOUND_M = 0.5  # a loop edge against the truth (the bench: 1 m)
 
 
@@ -1544,32 +1487,34 @@ def slam_phase(dev, seed: int, main_fps: float) -> dict:
     from mulls_tpu_torch.ops import kernels
     from mulls_tpu_torch.pipeline.odometry import OdometryPipeline
     from mulls_tpu_torch.pipeline.slam import SlamPipeline
+    from mulls_tpu_torch.tools import worlds
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 5)
-    world = build_loop_world(rng)
-    gt = loop_trajectory(SLAM_FRAMES, SLAM_STEP)
+    world = worlds.build_world(rng)
+    gt = worlds.loop_trajectory(SLAM_FRAMES, step=SLAM_STEP)
     base = MullsConfig()
     n_raw = base.shapes.n_raw
-    frames = [simulate(world, T, n_raw, rng) for T in gt]
+    frames = [worlds.simulate(world, T, n_raw, rng) for T in gt]
     counts = [int(f["mask"].sum()) for f in frames]
     print(f"[slam] {SLAM_FRAMES} scans of the urban loop at {SLAM_STEP} "
           f"m/frame, valid points min {min(counts)} max {max(counts)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     cfg = base.replace(submap=dataclasses.replace(
         base.submap, loop_closure_detection_on=True))
-    # the same frames through odometry alone, for the rate without the
-    # back end
+    # the first SLAM_ODO_FRAMES of the same frames through odometry alone,
+    # for the rate without the back end
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    OdometryPipeline(base, device=dev).run(frames)
+    OdometryPipeline(base, device=dev).run(frames[:SLAM_ODO_FRAMES])
     torch.cuda.synchronize()
-    odo_fps = SLAM_FRAMES / (time.perf_counter() - t0)
+    odo_fps = SLAM_ODO_FRAMES / (time.perf_counter() - t0)
     pipe = SlamPipeline(cfg, segment=SLAM_SEGMENT, device=dev)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = pipe.run(frames)
+    with LoopBoundarySnapshot(cfg) as snap:
+        res = pipe.run(frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1601,8 +1546,9 @@ def slam_phase(dev, seed: int, main_fps: float) -> dict:
             for k, v in tm.items()}
     bad = [(i, c) for i, c in enumerate(res.codes) if i > 0 and c != 1]
     print(f"[slam] {SLAM_FRAMES} frames with loop closure in {wall:.2f} s: "
-          f"{SLAM_FRAMES / wall:.2f} frames/s (odometry only on the same "
-          f"frames: {odo_fps:.2f} frames/s; the main phase: {main_fps:.2f}); "
+          f"{SLAM_FRAMES / wall:.2f} frames/s (odometry only on the first "
+          f"{SLAM_ODO_FRAMES} of the same frames: {odo_fps:.2f} frames/s; the "
+          f"main phase: {main_fps:.2f}); "
           f"refine {refine_ms:.1f} ms", flush=True)
     print(f"[slam] {len(bad)} frames after the first without code 1: "
           f"{bad[:12]}", flush=True)
@@ -1643,7 +1589,97 @@ def slam_phase(dev, seed: int, main_fps: float) -> dict:
             "refine_ms": refine_ms, "timings_ms": tm, "alone_ms": alone,
             "launches": launches,
             "backend_launches": dict(be.launches), "events": be.events,
-            "backend": be, "cfg": cfg}
+            "backend": be, "cfg": cfg, "loop_boundary": snap.kept}
+
+
+class LoopBoundarySnapshot:
+    """While entered, keeps the back end's host state and the boundary's
+    draws (``backend_to_numpy``, the generator's state) from just before
+    the first ``SlamBackend.on_new_submap`` call that adds a loop edge.
+    Only calls that can have a loop candidate (the new submap's id at
+    least ``min_submap_id_diff``) are copied."""
+
+    def __init__(self, cfg):
+        self.cfg, self.kept = cfg, None
+
+    def __enter__(self):
+        from mulls_tpu_torch.backend.convert import backend_to_numpy
+        from mulls_tpu_torch.backend.submap import SlamBackend
+        self.cls = SlamBackend
+        real = self.fn = SlamBackend.on_new_submap
+        diff = self.cfg.submap.min_submap_id_diff
+
+        def wrapped(be, draws, frames_wo_opt=None):
+            if self.kept is not None or be.submaps[-1].sid < diff:
+                return real(be, draws, frames_wo_opt)
+            tree = backend_to_numpy(be)
+            state = draws.get_state()
+            loops = sum(e.kind == 2 for e in be.edges)
+            out = real(be, draws, frames_wo_opt)
+            if sum(e.kind == 2 for e in be.edges) > loops:
+                self.kept = {"tree": tree, "draws": state,
+                             "frames_wo_opt": frames_wo_opt,
+                             "sid": be.submaps[-1].sid}
+            return out
+
+        self.cls.on_new_submap = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.on_new_submap = self.fn
+
+
+def slam_bits_check(slam: dict, dev) -> dict:
+    """The slam phase's loop boundary run twice on the card from the same
+    state: ``SlamBackend.on_new_submap`` on two back ends rebuilt from the
+    kept host state (``backend_from_numpy``: the bank re-uploaded, as a
+    resumed run has it) with the same draws.  The edges (i, j, kind, T,
+    confidence), the PGO's returned poses and every submap's pose must be
+    equal bit for bit; ms per run."""
+    import torch
+    from mulls_tpu_torch.backend.convert import backend_from_numpy
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+
+    kept, cfg = slam["loop_boundary"], slam["cfg"]
+    if kept is None:
+        raise AssertionError("no boundary of the SLAM run added a loop edge")
+    runs = []
+    for _ in range(2):
+        be = backend_from_numpy(kept["tree"], cfg, dev)
+        draws = GeneratorDraws(0, dev)
+        draws.set_state(kept["draws"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = be.on_new_submap(draws, kept["frames_wo_opt"])
+        torch.cuda.synchronize()
+        runs.append({"ms": (time.perf_counter() - t0) * 1e3, "poses": poses,
+                     "edges": [(e.i, e.j, e.kind, np.asarray(e.T),
+                                e.confidence) for e in be.edges],
+                     "submap_poses": [np.asarray(s.pose) for s in be.submaps]})
+    a, b = runs
+    same_edges = len(a["edges"]) == len(b["edges"]) and all(
+        x[:3] == y[:3] and np.array_equal(x[3], y[3]) and x[4] == y[4]
+        for x, y in zip(a["edges"], b["edges"]))
+    same_pgo = ((a["poses"] is None) == (b["poses"] is None)
+                and (a["poses"] is None
+                     or np.array_equal(a["poses"], b["poses"])))
+    same_nodes = all(np.array_equal(x, y) for x, y in
+                     zip(a["submap_poses"], b["submap_poses"]))
+    loops = [x[:2] for x in a["edges"] if x[2] == 2]
+    print(f"[slam] the loop boundary of submap {kept['sid']} run twice from "
+          f"the same state ({len(kept['tree']['submaps'])} submaps, "
+          f"{len(kept['tree']['edges'])} edges before it): edges "
+          f"{'equal' if same_edges else 'DIFFER'}, PGO "
+          f"{'accepted' if a['poses'] is not None else 'not accepted'} and "
+          f"its nodes {'equal' if same_pgo and same_nodes else 'DIFFER'} "
+          f"bit for bit; loop edges {loops}; {a['ms']:.1f} and "
+          f"{b['ms']:.1f} ms", flush=True)
+    if not (same_edges and same_pgo and same_nodes):
+        raise AssertionError("the loop boundary run twice from the same "
+                             "state gave different edges or PGO nodes")
+    return {"sid": kept["sid"], "ms": [a["ms"], b["ms"]],
+            "edges": len(a["edges"]), "loop_edges": loops,
+            "pgo_accepted": a["poses"] is not None}
 
 
 def backend_alone_ms(be, cfg, dev) -> dict:
@@ -1746,9 +1782,10 @@ def m2m_nn_check(slam: dict, dev) -> dict:
     print(f"[kernels] nn_grouped at the m2m shapes of submaps {a.sid}->"
           f"{b.sid} ({shape}, {pairs:.3g} pairs): equal to the plain version"
           f" bit for bit, same bits twice; one grouped launch {ms:.4f} ms on "
-          f"the device ({ops:.0f} launch per call; {ev:.4f} ms per call with "
-          f"CUDA events), plain {plain:.4f} ms, cdist+min {lib_ms:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by}); {cfg.reg.reg_max_iter_num_m2m} such "
+          f"the device ({n_ops(ops)} launch per call; {ev:.4f} ms per call "
+          f"with CUDA events), plain {plain:.4f} ms, cdist+min "
+          f"{lib_ms:.4f} ms, bound {bnd:.5f} ms ({by}); "
+          f"{cfg.reg.reg_max_iter_num_m2m} such "
           f"launches per registration", flush=True)
     return {"shape": shape, "pairs": pairs, "ms": ms, "event_ms": ev,
             "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
@@ -2193,6 +2230,7 @@ def reg_phase(frames: list, gt: np.ndarray, dev, out_dir: str) -> dict:
     from mulls_tpu_torch.backend import fpfh
     from mulls_tpu_torch.io.dataset import write_point_cloud
     from mulls_tpu_torch.ops import kernels
+    from mulls_tpu_torch.tools import worlds
     from mulls_tpu_torch.tools.roofline import bound_ms, device_ms, time_ms
 
     tgt, src = frames[0], frames[6]
@@ -2208,9 +2246,9 @@ def reg_phase(frames: list, gt: np.ndarray, dev, out_dir: str) -> dict:
     # bench's world, whose facades differ side to side): its frames 20 and
     # 25, 6.5 m apart on a straight, the source turned the same way
     rng = np.random.default_rng(SEED + 5)
-    urban = build_loop_world(rng)
-    poses = loop_trajectory(26, SLAM_STEP)
-    u_t, u_s = (simulate(urban, poses[k], len(tgt["mask"]), rng)
+    urban = worlds.build_world(rng)
+    poses = worlds.loop_trajectory(26, step=SLAM_STEP)
+    u_t, u_s = (worlds.simulate(urban, poses[k], len(tgt["mask"]), rng)
                 for k in (20, 25))
     write_point_cloud(o("reg_urban_target.bin"), u_t["xyz"][u_t["mask"]],
                       u_t["intensity"][u_t["mask"]])
@@ -3024,6 +3062,113 @@ def fleet_phase(frames: list, gt: np.ndarray, dev, out_dir: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the recovery ladder at full width, against the reference
+# --------------------------------------------------------------------------
+
+LADDER_RECORD = os.path.join("experiments", "ladder_reference.json")
+LADDER_BOUND = (0.02, 0.2)  # m, deg: T_rel against the record
+
+
+class IcpCount:
+    """Counts ``mm_lls_icp`` calls of the odometry step while entered."""
+
+    def __enter__(self):
+        from mulls_tpu_torch.pipeline import odometry
+        self.mod, self.fn, self.calls = odometry, odometry.mm_lls_icp, 0
+        odometry.mm_lls_icp = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mm_lls_icp = self.fn
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+
+def ladder_phase(dev) -> dict:
+    """The warm state of ``experiments/ladder_reference.json`` on the card:
+    ``MullsConfig()``, its stationary scans of the urban world
+    (``worlds.stationary_scans``), each stepped by ``slam_step`` with the
+    port's production draws (a generator seeded from ``cfg.seed``; the
+    reference's ``jax.random`` is not replayed, so equal bits are not
+    expected).  From that state one more step for each of the record's
+    cases (a wrong prior of given yaw and shift, a model age): the code
+    must equal the record's and ``T_rel`` be within 2 cm / 0.2 deg of
+    it.  Prints ms per case and the ICP runs of the step (the yaw sweep
+    adds one a seed)."""
+    import torch
+    from mulls_tpu_torch.config import MullsConfig
+    from mulls_tpu_torch.core.cloud import pack_raw_host
+    from mulls_tpu_torch.core.draws import GeneratorDraws
+    from mulls_tpu_torch.core.tree import tree_map
+    from mulls_tpu_torch.pipeline.odometry import init_state, slam_step
+    from mulls_tpu_torch.tools.worlds import stationary_scans
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, LADDER_RECORD)) as f:
+        rec = json.load(f)
+    cfg = MullsConfig()
+    n = rec["warm_scans"]
+    t0 = time.perf_counter()
+    scans = stationary_scans(rec["seed"], n + 1, cfg.shapes.n_raw)
+    packed = [pack_raw_host(f, with_ts=False).to(dev) for f in scans]
+    warm = init_state(cfg, dev)
+    warm_codes = []
+    for i in range(n):
+        warm, out = slam_step(warm, packed[i], cfg, frame=i)
+        warm_codes.append(int(out.code))
+    torch.cuda.synchronize()
+    print(f"[ladder] warm state: {n} stationary scans of the urban world "
+          f"(seed {rec['seed']}), codes {warm_codes} (the reference's "
+          f"{rec['warm_codes']}), {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # the sweep's trials (odometry._register_stage): every yaw step on
+    # each side at the prior's translation, then zero yaw and every step
+    # at a third of it
+    m = cfg.map
+    seeds = 4 * max(int(round(m.yaw_reacquire_range_d
+                              / m.yaw_reacquire_step_d)), 1) + 1
+    draws_state = warm.draws.get_state()
+    out_cases = {}
+    for case, c in rec["cases"].items():
+        T = np.eye(4, dtype=np.float32)
+        yaw = np.radians(c["prior_yaw_deg"])
+        T[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        T[0, 3] = c["prior_shift_m"]
+        draws = GeneratorDraws(cfg.seed, dev)
+        draws.set_state(draws_state)
+        state = tree_map(lambda x: x.clone() if torch.is_tensor(x) else x,
+                         warm).replace(
+            draws=draws, T_prev=torch.as_tensor(T, device=dev),
+            model_age=torch.tensor(c["model_age"], dtype=torch.int32,
+                                   device=dev),
+            add_length=torch.tensor(0.0, dtype=torch.float32, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with IcpCount() as icp:
+            _, step = slam_step(state, packed[n], cfg, frame=n)
+            code = int(step.code)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        T_rel = step.T_rel.cpu().numpy().astype(np.float64)
+        dt, dr = motion_diff(T_rel, np.asarray(c["T_rel"], np.float64))
+        sweep = seeds if icp.calls > seeds else 0
+        ok = code == c["code"] and dt < LADDER_BOUND[0] and dr < LADDER_BOUND[1]
+        print(f"[ladder] {case} (prior {c['prior_yaw_deg']:g} deg, "
+              f"{c['prior_shift_m']:g} m, model age {c['model_age']}): code "
+              f"{code} (reference {c['code']}), T_rel {dt * 100:.3f} cm / "
+              f"{dr:.4f} deg from the reference's; {icp.calls} ICP runs, the "
+              f"yaw sweep ran {sweep} of its {seeds} seeds; {ms:.1f} ms",
+              flush=True)
+        out_cases[case] = {"code": code, "reference_code": c["code"],
+                           "dt_m": dt, "dr_deg": dr, "ms": ms,
+                           "icp_runs": icp.calls, "sweep_seeds": sweep,
+                           "ok": ok}
+    return {"warm_codes": warm_codes, "cases": out_cases}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -3122,6 +3267,10 @@ def main() -> int:
         m2m = m2m_nn_check(slam, dev)
     except AssertionError as e:
         return fail(f"kernel check: {e}")
+    try:
+        slam_bits = slam_bits_check(slam, dev)
+    except AssertionError as e:
+        return fail(f"slice check: {e}")
     agree_slam = agree_slam_phase(dev, SEED)
     # --- phase 10: the SLAM run's map
     try:
@@ -3140,6 +3289,10 @@ def main() -> int:
         t0 = time.perf_counter()
         fleet = fleet_phase(frames, gt, dev, tmp_dir.name)
         print(f"[fleet] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        # --- phase 17: the recovery ladder against the reference's record
+        t0 = time.perf_counter()
+        ladder = ladder_phase(dev)
+        print(f"[ladder] phase {time.perf_counter() - t0:.1f} s", flush=True)
     except AssertionError as e:
         return fail(f"slice check: {e}")
     finally:
@@ -3224,7 +3377,8 @@ def main() -> int:
                    if re.search(rf"\b{base}_kernel\b", t["kernel"])]
         if partial:
             e["device_ms_from_partial_traces"] = [
-                {k: t[k] for k in ("kept", "calls", "ms")} for t in partial]
+                {k: t[k] for k in ("kept", "calls", "ms", "clock")}
+                for t in partial]
     if PARTIAL_TRACES:
         print(f"[timing] {len(PARTIAL_TRACES)} device times from traces "
               f"that lost events, marked on their kernels' rows", flush=True)
@@ -3319,6 +3473,14 @@ def main() -> int:
                         f"{agree_slam['pose_dt_m']} m / "
                         f"{agree_slam['pose_dr_deg']} deg")
 
+    # the recovery ladder at full width: the reference's codes, and its
+    # motion within the parity tests' bound
+    for case, c in ladder["cases"].items():
+        if not c["ok"]:
+            problems.append(f"ladder {case}: code {c['code']} (reference "
+                            f"{c['reference_code']}), T_rel {c['dt_m']} m / "
+                            f"{c['dr_deg']} deg from the reference's")
+
     # multi-sequence odometry: each sequence as its run alone, healthy,
     # and its own launches of the front end's kernels
     for s, rec in enumerate(multiseq["sequences"]):
@@ -3357,7 +3519,7 @@ def main() -> int:
 
     if args.out:
         slam_rec = {k: v for k, v in slam.items()
-                    if k not in ("backend", "cfg", "poses")}
+                    if k not in ("backend", "cfg", "poses", "loop_boundary")}
         main_res.pop("poses")
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels_line,
@@ -3367,6 +3529,7 @@ def main() -> int:
                        "assembly": assembly, "baseline": baseline,
                        "cli": cli, "reg": reg, "merge": merge,
                        "multiseq": multiseq, "fleet": fleet,
+                       "slam_bits": slam_bits, "ladder": ladder,
                        "main_repeat_end_err_m":
                        again["end_err_m"]}, f, indent=1, default=float)
     if problems:

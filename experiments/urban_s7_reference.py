@@ -4,8 +4,8 @@ parts from it.
 
 Builds the urban world and the loop trajectory of
 ``tools/synthetic_accuracy_bench.py`` from ``--seed`` exactly as
-``mulls_tpu_torch/tools/accuracy_row.py`` does (the same draws in the same
-order), runs ``mulls_tpu``'s ``OdometryPipeline`` over ``--frames`` scans
+``mulls_tpu_torch/tools/accuracy_row.py`` does (``tools/worlds.py``: the
+same draws in the same order), runs ``mulls_tpu``'s ``OdometryPipeline`` over ``--frames`` scans
 on the CPU, prints the drift columns of the accuracy matrix and writes the
 per-frame poses and codes to ``--out`` (npz).  With ``--port FILE.json``
 (the port's ``accuracy_row --out`` record, which carries its odometry
@@ -60,11 +60,11 @@ def _row(gt: np.ndarray, poses: np.ndarray, codes) -> dict:
 def run_reference(seed: int, n_frames: int) -> dict:
     from mulls_tpu.config import MullsConfig
     from mulls_tpu.pipeline.odometry import OdometryPipeline
-    from mulls_tpu_torch.tools.accuracy_row import urban_frames
+    from mulls_tpu_torch.tools.worlds import make_run
 
     cfg = MullsConfig()
     t0 = time.perf_counter()
-    scans, gt = urban_frames(seed, n_frames, cfg.shapes.n_raw)
+    scans, gt, _ = make_run("urban", seed, n_frames, cfg.shapes.n_raw)
     print(f"[reference] {n_frames} scans simulated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()

@@ -173,7 +173,8 @@ def time_ms(fn: Callable, iters: int, warmup: int = 2) -> float:
 
 
 # the traces in which torch.profiler lost device events and device_ms took
-# the mean of the launches it kept: {"kernel", "kept", "calls", "ms"}
+# the mean of the launches it kept ("clock": "device") or CUDA events' time
+# ("cuda_events"): {"kernel", "kept", "calls", "ms", "clock"}
 PARTIAL_TRACES: list = []
 
 
@@ -188,17 +189,20 @@ def device_ms(fn: Callable, iters: int, kernel: Optional[str] = None
     (``count_within``'s index).  Every call launches at least one kernel
     (one of ``kernel``), so a trace with fewer such events than calls lost
     some (seen in the kernel and probe phases of
-    ``chip_smoke.py`` and after its threaded SLAM runs; why is not known).
-    Such a trace is taken again, three times in all.  If all three lose
-    events and the last one's all come from one kernel, the mean device
-    time of the launches it kept is that kernel's time per call (one
-    launch a call); the trace is appended to :data:`PARTIAL_TRACES`, so
-    that a report can mark the time.  Otherwise it raises."""
+    ``chip_smoke.py`` and after its threaded SLAM runs, as few as 2 of 20
+    launches kept; why is not known).  Such a trace is taken again, five
+    times in all.  If all five lose events and the last one's all come
+    from one kernel, the mean device time of the launches it kept is that
+    kernel's time per call (one launch a call).  If they come from several
+    kernels or there are none, the time is CUDA events' (host launch gaps
+    included) and the device operations per call are None (not measured).
+    Either way the trace is appended to :data:`PARTIAL_TRACES`, so that a
+    report can mark the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -208,18 +212,20 @@ def device_ms(fn: Callable, iters: int, kernel: Optional[str] = None
         if len(kern) >= iters:
             return (sum(e.time_range.elapsed_us() for e in kern) / 1e3
                     / iters, len(kern) / iters)
-    names = {e.name for e in kern}
-    if len(names) != 1:
-        raise AssertionError(f"torch.profiler recorded {len(kern)} device "
-                             f"operations of {len(names)} kernels for "
-                             f"{iters} calls in each of three traces")
-    ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / len(kern)
-    PARTIAL_TRACES.append({"kernel": names.pop(), "kept": len(kern),
-                           "calls": iters, "ms": ms})
-    print(f"[timing] torch.profiler kept {len(kern)} of {iters} launches of "
-          f"{PARTIAL_TRACES[-1]['kernel'][:60]}: their mean device time, "
-          f"{ms:.4f} ms", flush=True)
-    return ms, 1.0
+    names = sorted({e.name for e in kern})
+    if len(names) == 1:
+        ms, ops, how = (sum(e.time_range.elapsed_us() for e in kern) / 1e3
+                        / len(kern), 1.0, "their mean device time")
+    else:
+        ms, ops, how = time_ms(fn, iters), None, "CUDA events' time instead"
+    PARTIAL_TRACES.append({"kernel": " + ".join(names) or str(kernel),
+                           "kept": len(kern), "calls": iters, "ms": ms,
+                           "clock": "device" if ops else "cuda_events"})
+    print(f"[timing] torch.profiler kept {len(kern)} device operations of "
+          f"{len(names)} kernels for {iters} calls of "
+          f"{PARTIAL_TRACES[-1]['kernel'][:60]}: {how}, {ms:.4f} ms",
+          flush=True)
+    return ms, ops
 
 
 def call_device_ms(fn: Callable, iters: int, kernel: str

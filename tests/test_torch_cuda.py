@@ -1119,3 +1119,47 @@ def test_native_reader_feeds_the_card_as_the_numpy_reader(dev, tmp_path):
         assert a.xyz_q.is_cuda
         for name in ("xyz_q", "intensity_q", "ts_q", "n"):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+# --- the recovery ladder (the CPU parity test against the reference:
+# tests/test_torch_pipeline.py::test_recovery_paths_match_reference)
+
+@pytest.mark.parametrize("case,yaw_deg,shift_m,age", [
+    # a 40 deg wrong prior after a blackout: the widened retry, then the
+    # yaw sweep
+    ("yaw_sweep", 40.0, 0.0, 4),
+    # a warm prior 1.2 m off: the mover veto's hypothesis test
+    ("mover_veto", 0.0, 1.2, 0),
+])
+def test_recovery_paths_on_the_card_match_the_cpu(dev, case, yaw_deg,
+                                                  shift_m, age):
+    """The in-frame retry, the mover veto and the yaw sweep on the card:
+    a warm state from 4 stationary scans of the street scene at the small
+    width, then one step from a perturbed motion model, on the card and on
+    the CPU with the same draws: equal codes and T_rel within
+    2 cm / 0.2 deg."""
+    from mulls_tpu_torch.core.cloud import pack_raw_host
+    from mulls_tpu_torch.io.dataset import pad_cloud
+    from mulls_tpu_torch.pipeline.odometry import init_state, slam_step
+    cfg = _small_reg_cfg()
+    pose, scan = _street_scene(95)
+    scans = [pack_raw_host(pad_cloud(scan(pose(0.0, 0.0, 0.0)), 16384),
+                           with_ts=False) for _ in range(5)]
+    prior = pose(shift_m, 0.0, yaw_deg).astype(np.float32)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        state = init_state(cfg, where, draws=_HostDraws(0, where))
+        for i, f in enumerate(scans[:4]):
+            state, _ = slam_step(state, f.to(where), cfg, frame=i)
+        state = state.replace(
+            T_prev=torch.as_tensor(prior, device=where),
+            model_age=torch.tensor(age, dtype=torch.int32, device=where),
+            add_length=torch.tensor(0.0, device=where))
+        _, step = slam_step(state, scans[4].to(where), cfg, frame=4)
+        out[where.type] = (int(step.code),
+                           step.T_rel.cpu().numpy().astype(np.float64))
+    (code_card, T_card), (code_cpu, T_cpu) = out["cuda"], out["cpu"]
+    assert code_card == code_cpu, case
+    assert np.linalg.norm(T_card[:3, 3] - T_cpu[:3, 3]) < 0.02
+    M = T_card[:3, :3].T @ T_cpu[:3, :3]
+    assert np.degrees(np.arccos(np.clip((np.trace(M) - 1) / 2, -1, 1))) < 0.2
