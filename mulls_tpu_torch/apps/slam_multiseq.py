@@ -15,7 +15,12 @@ has the aggregate rates measured on one card.
         --flagfile lo_gflag_list_kitti_urban.txt --output_dir out/
 
 Runs on ``cuda`` by default; ``--device cpu`` runs the plain paths on the
-CPU (``--n_devices N`` lists the CPU N times).
+CPU (``--n_devices N`` lists the CPU N times).  ``--profile_dir D`` writes
+``torch.profiler``'s Chrome trace of the first steady segment (the first
+after the scan-to-scan warm-up) to ``D/trace.json`` (``D/trace_rank<r>.json``
+for each rank of a process group), with the program's spans in it
+(``core/trace.py``; ``PERF.md`` §3 lists them): open it in Perfetto or
+``chrome://tracing``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,57 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--progress", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the first "
+                        "steady segment, with the program's spans, here")
     return p
+
+
+class SegmentProfile:
+    """An ``on_segment`` hook that runs ``torch.profiler`` over the first
+    segment that starts after frame ``warm`` (a steady one), with the
+    program's spans on and recorded in every thread (the feeds' workers
+    too), and writes its Chrome trace to ``path``."""
+
+    def __init__(self, path: str, warm: int, cuda: bool):
+        self.path = path
+        self.warm = warm
+        self.cuda = cuda
+        self.prof = None
+        self.written = False
+
+    def __call__(self, done: int) -> None:
+        if self.prof is not None:
+            self.close()
+        elif not self.written and done > self.warm:
+            import torch
+            from torch._C._profiler import _ExperimentalConfig
+            from torch.profiler import ProfilerActivity, profile
+
+            from mulls_tpu_torch.core import trace
+            acts = [ProfilerActivity.CPU]
+            if self.cuda:
+                acts.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize()
+            trace.enable()
+            self.prof = profile(activities=acts,
+                                experimental_config=_ExperimentalConfig(
+                                    profile_all_threads=True))
+            self.prof.start()
+
+    def close(self) -> None:
+        """Stop a running profile and write its trace."""
+        if self.prof is None:
+            return
+        from mulls_tpu_torch.core import trace
+        self.prof.stop()
+        trace.disable()
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        self.written = True
+        print(f"[mulls_tpu_torch multiseq] profiler trace of a steady "
+              f"segment written to {self.path}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -96,9 +151,19 @@ def main(argv=None) -> int:
           flush=True)
 
     pipe = MultiSeqPipeline(cfg, mesh, segment=args.segment)
+    hook = None
+    if args.profile_dir:
+        name = ("trace.json" if mesh.world_size == 1
+                else f"trace_rank{mesh.rank}.json")
+        hook = SegmentProfile(os.path.join(args.profile_dir, name),
+                              cfg.map.initial_scan2scan_frame_num,
+                              cuda=args.device != "cpu")
     t0 = time.perf_counter()
-    results = pipe.run(padded, progress=args.progress)[:n_true]
+    results = pipe.run(padded, progress=args.progress,
+                       on_segment=hook)[:n_true]
     dt = time.perf_counter() - t0
+    if hook is not None:
+        hook.close()
     total = sum(len(r.poses) for r in results)
     print(f"[mulls_tpu_torch multiseq] {total} frames in {dt:.1f} s "
           f"({total / dt:.1f} fps aggregate)")

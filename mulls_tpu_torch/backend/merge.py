@@ -33,7 +33,6 @@ writes it).  Registration and PGO run on the back end's device.
 from __future__ import annotations
 
 import pickle
-import time
 from dataclasses import dataclass, field, replace
 from typing import List, Optional, Tuple
 
@@ -45,6 +44,7 @@ from mulls_tpu_torch.backend.submap import (REG_EDGE, Edge, SlamBackend,
                                             bev_align_submaps, bev_stack_of,
                                             coarse_align_submaps, to_host)
 from mulls_tpu_torch.config import MullsConfig
+from mulls_tpu_torch.core import trace
 from mulls_tpu_torch.core.device import resolve_device
 from mulls_tpu_torch.core.draws import Draws, GeneratorDraws
 
@@ -237,11 +237,11 @@ def merge_sessions(sessions: List[SessionData], cfg: MullsConfig,
 
     for sess in sessions[1:]:
         draws, k_align = draws.split(2)
-        t0 = time.perf_counter()
-        T_s, support = find_session_transform(
-            list(merged), sess.submaps, cfg, k_align, min_votes=min_votes,
-            events=events, device=dev)
-        timings["vote"] += (time.perf_counter() - t0) * 1e3
+        with trace.span("merge.vote", timed=True) as sp:
+            T_s, support = find_session_transform(
+                list(merged), sess.submaps, cfg, k_align,
+                min_votes=min_votes, events=events, device=dev)
+        timings["vote"] += sp.ms
         if T_s is None:
             raise ValueError(
                 f"session '{sess.name}' could not be localized against the "
@@ -252,45 +252,45 @@ def merge_sessions(sessions: List[SessionData], cfg: MullsConfig,
 
         # fine inter-session edges on overlapping pairs; voting pairs
         # first (they are known to overlap), then IoU-gated extras
-        t0 = time.perf_counter()
-        cand = list(dict.fromkeys(
-            [(ai, off + bi) for ai, bi in support]
-            + [(ai, off + bi)
-               for ai in range(off) for bi in range(len(sess.submaps))
-               if (np.linalg.norm(merged[ai].center[:2]
-                                  - merged[off + bi].center[:2])
-                   < s_cfg.neighbor_search_dist
-                   and _bbx_iou_2d(merged[ai], merged[off + bi])
-                   > s_cfg.min_iou_thre)]))
-        n_ok = 0
-        for attempted, (ai, bj) in enumerate(cand):
-            if n_ok >= max_inter_edges_per_session:
-                events.append(f"merge: inter-edge cap "
-                              f"({max_inter_edges_per_session}) reached, "
-                              f"{len(cand) - attempted} candidates unused")
-                break
-            a, b = merged[ai], merged[bj]
-            res = backend.map_to_map(a, b, np.linalg.inv(a.pose) @ b.pose)
-            code, conf = int(res.process_code), float(res.confidence)
-            if code != 1:
-                events.append(f"merge edge {a.sid}->{b.sid}: fine reg code "
-                              f"{code}")
-                continue
-            if conf < s_cfg.map_to_map_min_cor_ratio:
-                events.append(f"merge edge {a.sid}->{b.sid}: corr ratio "
-                              f"{conf:.3f} too low")
-                continue
-            sigma = float(res.sigma)
-            edges.append(Edge(
-                i=a.sid, j=b.sid,
-                T=res.transform.cpu().numpy().astype(np.float64),
-                info=res.information.cpu().numpy().astype(np.float64),
-                kind=REG_EDGE, sigma=sigma, confidence=conf))
-            n_ok += 1
-            events.append(f"merge edge {a.sid}->{b.sid}: accepted, sigma "
-                          f"{sigma:.4f}")
+        with trace.span("merge.edges", timed=True) as sp:
+            cand = list(dict.fromkeys(
+                [(ai, off + bi) for ai, bi in support]
+                + [(ai, off + bi)
+                   for ai in range(off) for bi in range(len(sess.submaps))
+                   if (np.linalg.norm(merged[ai].center[:2]
+                                      - merged[off + bi].center[:2])
+                       < s_cfg.neighbor_search_dist
+                       and _bbx_iou_2d(merged[ai], merged[off + bi])
+                       > s_cfg.min_iou_thre)]))
+            n_ok = 0
+            for attempted, (ai, bj) in enumerate(cand):
+                if n_ok >= max_inter_edges_per_session:
+                    events.append(f"merge: inter-edge cap "
+                                  f"({max_inter_edges_per_session}) reached, "
+                                  f"{len(cand) - attempted} candidates unused")
+                    break
+                a, b = merged[ai], merged[bj]
+                res = backend.map_to_map(a, b, np.linalg.inv(a.pose) @ b.pose)
+                code, conf = int(res.process_code), float(res.confidence)
+                if code != 1:
+                    events.append(f"merge edge {a.sid}->{b.sid}: fine reg "
+                                  f"code {code}")
+                    continue
+                if conf < s_cfg.map_to_map_min_cor_ratio:
+                    events.append(f"merge edge {a.sid}->{b.sid}: corr ratio "
+                                  f"{conf:.3f} too low")
+                    continue
+                sigma = float(res.sigma)
+                edges.append(Edge(
+                    i=a.sid, j=b.sid,
+                    T=res.transform.cpu().numpy().astype(np.float64),
+                    info=res.information.cpu().numpy().astype(np.float64),
+                    kind=REG_EDGE, sigma=sigma, confidence=conf))
+                n_ok += 1
+                events.append(f"merge edge {a.sid}->{b.sid}: accepted, sigma "
+                              f"{sigma:.4f}")
         total_inter += n_ok
-        timings["edges"] += (time.perf_counter() - t0) * 1e3
+        timings["edges"] += sp.ms
 
     # joint PGO with the anchor session pinned
     backend.submaps = merged
@@ -306,9 +306,9 @@ def merge_sessions(sessions: List[SessionData], cfg: MullsConfig,
         sm.stable = False
     accepted = False
     if total_inter > 0:
-        t0 = time.perf_counter()
-        accepted = backend.optimize(extra_fixed=anchor_fixed) is not None
-        timings["pgo"] = (time.perf_counter() - t0) * 1e3
+        with trace.span("merge.pgo", timed=True) as sp:
+            accepted = backend.optimize(extra_fixed=anchor_fixed) is not None
+        timings["pgo"] = sp.ms
         events.append("merge: joint PGO "
                       + ("accepted" if accepted else "vetoed"))
     else:

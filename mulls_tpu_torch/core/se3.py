@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from mulls_tpu_torch.core import trace
 from mulls_tpu_torch.core.batch import matmul, matvec, rotate
 
 
@@ -90,7 +91,9 @@ def translation_norm(T: torch.Tensor) -> torch.Tensor:
 
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation onto SO(3) (SVD), keeping det=+1."""
-    u, _, vt = torch.linalg.svd(R)
+    # the card's batched SVD checks its results twice: two waits a call
+    with trace.sync("svd", waits=2):
+        u, _, vt = torch.linalg.svd(R)
     d = torch.linalg.det(matmul(u, vt))
     s = torch.ones(R.shape[:-2] + (3,), dtype=R.dtype, device=R.device)
     s[..., 2] = d

@@ -30,7 +30,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from mulls_tpu_torch.config import RegConfig
-from mulls_tpu_torch.core import se3
+from mulls_tpu_torch.core import se3, trace
 from mulls_tpu_torch.core.batch import (expand_like, fsum, matmul, matvec,
                                         offsets, take, where)
 from mulls_tpu_torch.core.cloud import FeatureCloud, masked_max, masked_min
@@ -277,202 +277,208 @@ def mm_lls_icp(source: Dict[str, FeatureCloud],
 
     shooting = [n for n in used if cfg.normal_shooting_on and _PLANAR[n]]
     for k in range(max_iter):
-        # transform every class, then ONE grouped 1-NN launch for the
-        # classes that do not use normal shooting (and every batch entry)
-        s_pts, s_dirs, s_masks = {}, {}, {}
-        for name in used:
-            sc = source[name]
-            s_xyz = se3.transform_points(T, sc.xyz)
-            s_mask = sc.mask
-            if tmin is not None:
-                s_mask = s_mask & torch.all((s_xyz >= tmin) & (s_xyz <= tmax),
-                                            dim=-1)
-            s_pts[name] = s_xyz
-            s_dirs[name] = se3.rotate_vectors(T, sc.normal)
-            s_masks[name] = s_mask
-        nearest = [n for n in used if n not in shooting]
-        found = dict(zip(nearest, nearest_neighbor_grouped(
-            [(s_pts[n], s_masks[n], target[n].xyz, target[n].mask)
-             for n in nearest])))
-        corrs = {}
-        for ci, name in enumerate(used):
-            if name in shooting:
-                found[name] = normal_shooting_neighbor(
-                    s_pts[name], s_dirs[name], s_masks[name],
-                    target[name].xyz, target[name].mask,
-                    2.5 * thre[..., ci])
-            corrs[name] = _find_corres(
-                found[name], s_pts[name], s_dirs[name], s_masks[name],
-                target[name], thre[..., ci], cos_bearing,
-                normal_check=(name != "vertex"))
+        with trace.span("reg.iter"):
+            # transform every class, then ONE grouped 1-NN launch for the
+            # classes that do not use normal shooting (and every batch entry)
+            s_pts, s_dirs, s_masks = {}, {}, {}
+            for name in used:
+                sc = source[name]
+                s_xyz = se3.transform_points(T, sc.xyz)
+                s_mask = sc.mask
+                if tmin is not None:
+                    s_mask = s_mask & torch.all(
+                        (s_xyz >= tmin) & (s_xyz <= tmax), dim=-1)
+                s_pts[name] = s_xyz
+                s_dirs[name] = se3.rotate_vectors(T, sc.normal)
+                s_masks[name] = s_mask
+            nearest = [n for n in used if n not in shooting]
+            found = dict(zip(nearest, nearest_neighbor_grouped(
+                [(s_pts[n], s_masks[n], target[n].xyz, target[n].mask)
+                 for n in nearest])))
+            corrs = {}
+            for ci, name in enumerate(used):
+                if name in shooting:
+                    found[name] = normal_shooting_neighbor(
+                        s_pts[name], s_dirs[name], s_masks[name],
+                        target[name].xyz, target[name].mask,
+                        2.5 * thre[..., ci])
+                corrs[name] = _find_corres(
+                    found[name], s_pts[name], s_dirs[name], s_masks[name],
+                    target[name], thre[..., ci], cos_bearing,
+                    normal_check=(name != "vertex"))
 
-        cnt = {n: torch.sum(corrs[n].valid, -1) for n in used}
-        total = sum(cnt.values())
-        necessary = sum(cnt[n] for n in ("pillar", "facade", "beam")
-                        if n in cnt)
-        necessary = torch.as_tensor(necessary, device=dev)
-        conf_new = necessary / src_feature_count
-        too_few = ((total < cfg.min_total_corr_num)
-                   | (necessary < cfg.min_neccessary_corr_num)
-                   | (conf_new < cfg.min_neccessary_corr_ratio))
+            cnt = {n: torch.sum(corrs[n].valid, -1) for n in used}
+            total = sum(cnt.values())
+            necessary = sum(cnt[n] for n in ("pillar", "facade", "beam")
+                            if n in cnt)
+            necessary = torch.as_tensor(necessary, device=dev)
+            conf_new = necessary / src_feature_count
+            too_few = ((total < cfg.min_total_corr_num)
+                       | (necessary < cfg.min_neccessary_corr_num)
+                       | (conf_new < cfg.min_neccessary_corr_ratio))
 
-        # x,y,z balance weight (`cregistration.hpp:1892-1900`)
-        m1 = cnt.get("ground", 0) + cnt.get("roof", 0)
-        m2, m3, m4 = (cnt.get("facade", 0), cnt.get("pillar", 0),
-                      cnt.get("beam", 0))
-        if strategy[0] == "1":
-            w_ground = torch.clamp(
-                cfg.z_xy_balance_ratio * (m2 + 2 * m3 - m4)
-                / (1e-4 + 2.0 * m1), min=0.01)
-        else:
-            w_ground = torch.ones(lead, device=dev)
-        class_w = {n: (w_ground[..., None] if n in ("ground", "roof")
-                       else 1.0) for n in used}
-
-        # centred normal equations
-        wsum = torch.full(lead, 1e-6, dtype=f32, device=dev)
-        csum = torch.zeros((*lead, 3), dtype=f32, device=dev)
-        for name in used:
-            v = corrs[name].valid
-            wsum = wsum + torch.sum(v, -1)
-            csum = csum + fsum(torch.where(v[..., None], s_pts[name], 0.0),
-                               dim=-2)
-        center = csum / wsum[..., None]
-
-        ATA = torch.zeros((*lead, 6, 6), dtype=f32, device=dev)
-        ATb = torch.zeros((*lead, 6), dtype=f32, device=dev)
-        vtpv = torch.zeros(lead, dtype=f32, device=dev)
-        nobs = torch.zeros(lead, dtype=f32, device=dev)
-        per_class = {}
-        late = (it > cfg.residual_weight_after_iter)[..., None]
-        for name in used:
-            sc, tc, corr = source[name], target[name], corrs[name]
-            p = s_pts[name] - center[..., None, :]
-            q_abs = take(tc.xyz, corr.t_idx)
-            q = q_abs - center[..., None, :]
-            tn = take(tc.normal, corr.t_idx)
-            pi, qi = sc.intensity, take(tc.intensity, corr.t_idx)
-            w = torch.where(corr.valid, class_w[name], 0.0)
-            if strategy[2] == "1":
-                w = w * _weight_by_dist_adaptive(
-                    torch.linalg.norm(q_abs, dim=-1), k, cfg)
-            if strategy[3] == "1":
-                w = w * _weight_by_intensity(pi, qi, cfg.intensity_scale)
-            if _PLANAR[name]:
-                d = torch.sum(tn * (q - p), dim=-1)
-                if strategy[1] == "1":
-                    rw = _weight_by_residual(torch.abs(d),
-                                             cfg.pt2pl_res_window)
-                    w = w * torch.where(late, rw, 1.0)
-                ata, atb, J, d = _pt2pl_system(p, q, tn, w)
-                per_class[name] = ("pl", J, d, w)
-            elif name == "vertex":
-                A = _pt2pt_rows(p)
-                b = -(p - q)
-                if strategy[1] == "1":
-                    rw = _weight_by_residual(torch.linalg.norm(p - q, dim=-1),
-                                             cfg.pt2pt_res_window)
-                    w = w * torch.where(late, rw, 1.0)
-                ata, atb = _rows_system(A, b, w)
-                per_class[name] = ("li", A, b, w)
-            else:  # pillar / beam: point-to-line via primary direction
-                A = _pt2li_rows(p, tn)
-                b = _pt2li_rhs(p, q, tn)
-                if strategy[1] == "1":
-                    rw = _weight_by_residual(torch.linalg.norm(b, dim=-1),
-                                             cfg.pt2li_res_window)
-                    w = w * torch.where(late, rw, 1.0)
-                ata, atb = _rows_system(A, b, w)
-                per_class[name] = ("li", A, b, w)
-            ATA = ATA + ata
-            ATb = ATb + atb
-
-        # solve (ridge epsilon keeps the all-masked case finite)
-        ATA_r = ATA + 1e-6 * eye6
-        x = torch.linalg.solve_ex(ATA_r, ATb)[0]
-
-        # degeneracy-aware solution remapping (extension of the reference
-        # package): whiten by the diagonal, zero the update along
-        # eigendirections with eigenvalue < degeneracy_thre
-        if cfg.degeneracy_thre > 0.0:
-            tr_t = ATA_r[..., 0, 0] + ATA_r[..., 1, 1] + ATA_r[..., 2, 2]
-            tr_r = ATA_r[..., 3, 3] + ATA_r[..., 4, 4] + ATA_r[..., 5, 5]
-            rho = torch.sqrt(torch.clamp(tr_r, min=1e-9)
-                             / torch.clamp(tr_t, min=1e-9))
-            s_bal = torch.cat([torch.ones((*lead, 3), dtype=f32, device=dev),
-                               rho[..., None].expand(*lead, 3)], -1)
-            norm = torch.clamp(tr_t / 3.0, min=1e-9)
-            Ahat = (ATA_r / s_bal[..., :, None] / s_bal[..., None, :]
-                    / norm[..., None, None])
-            lam, Vh = torch.linalg.eigh(Ahat)
-            keep = (lam >= cfg.degeneracy_thre).to(f32)
-            z = s_bal * x
-            x = matvec(Vh, keep * matvec(Vh.transpose(-1, -2), z)) / s_bal
-
-        # residuals at the solution -> posterior sigma^2
-        for name in used:
-            kind, A_or_J, b_or_d, w = per_class[name]
-            if kind == "pl":
-                r = matvec(A_or_J, x) - b_or_d
-                vtpv = vtpv + fsum(w * r * r, -1)
-                nobs = nobs + torch.sum(w > 0, -1)
+            # x,y,z balance weight (`cregistration.hpp:1892-1900`)
+            m1 = cnt.get("ground", 0) + cnt.get("roof", 0)
+            m2, m3, m4 = (cnt.get("facade", 0), cnt.get("pillar", 0),
+                          cnt.get("beam", 0))
+            if strategy[0] == "1":
+                w_ground = torch.clamp(
+                    cfg.z_xy_balance_ratio * (m2 + 2 * m3 - m4)
+                    / (1e-4 + 2.0 * m1), min=0.01)
             else:
-                r = matvec(A_or_J, x[..., None, :]) - b_or_d
-                vtpv = vtpv + fsum(w * torch.sum(r * r, -1), -1)
-                nobs = nobs + 3.0 * torch.sum(w > 0, -1)
-        sigma2_new = vtpv / torch.clamp(nobs - 6.0, min=1.0)
+                w_ground = torch.ones(lead, device=dev)
+            class_w = {n: (w_ground[..., None] if n in ("ground", "roof")
+                           else 1.0) for n in used}
 
-        # un-centre: T_step = Trans(c) @ T'(x) @ Trans(-c)
-        Tp = se3.from_x(x)
-        T_step = matmul(matmul(_translation(center), Tp),
-                        _translation(-center))
+            # centred normal equations
+            wsum = torch.full(lead, 1e-6, dtype=f32, device=dev)
+            csum = torch.zeros((*lead, 3), dtype=f32, device=dev)
+            for name in used:
+                v = corrs[name].valid
+                wsum = wsum + torch.sum(v, -1)
+                csum = csum + fsum(torch.where(v[..., None], s_pts[name], 0.0),
+                                   dim=-2)
+            center = csum / wsum[..., None]
 
-        # information matrix in the uncentred frame: ATA_unc = G^-T ATA G^-1
-        Ginv = eye6.expand(*lead, 6, 6).clone()
-        Ginv[..., :3, 3:] = -se3.skew(center)
-        ATA_unc = matmul(matmul(Ginv.transpose(-1, -2), ATA_r), Ginv)
-        # euler -> quaternion covariance propagation
-        # (`cregistration.hpp:1953-1964, 2795-2836`)
-        Jbig = eye6.expand(*lead, 6, 6).clone()
-        Jbig[..., 3:, 3:] = se3.quat_euler_jacobi(x[..., 3:6])
-        cof = torch.linalg.inv_ex(ATA_unc)[0]
-        cof_q = matmul(matmul(Jbig, cof), Jbig.transpose(-1, -2))
-        info_new = torch.linalg.inv_ex(cof_q + 1e-12 * eye6)[0] \
-            / torch.clamp(sigma2_new, min=1e-12)[..., None, None]
+            ATA = torch.zeros((*lead, 6, 6), dtype=f32, device=dev)
+            ATb = torch.zeros((*lead, 6), dtype=f32, device=dev)
+            vtpv = torch.zeros(lead, dtype=f32, device=dev)
+            nobs = torch.zeros(lead, dtype=f32, device=dev)
+            per_class = {}
+            late = (it > cfg.residual_weight_after_iter)[..., None]
+            for name in used:
+                sc, tc, corr = source[name], target[name], corrs[name]
+                p = s_pts[name] - center[..., None, :]
+                q_abs = take(tc.xyz, corr.t_idx)
+                q = q_abs - center[..., None, :]
+                tn = take(tc.normal, corr.t_idx)
+                pi, qi = sc.intensity, take(tc.intensity, corr.t_idx)
+                w = torch.where(corr.valid, class_w[name], 0.0)
+                if strategy[2] == "1":
+                    w = w * _weight_by_dist_adaptive(
+                        torch.linalg.norm(q_abs, dim=-1), k, cfg)
+                if strategy[3] == "1":
+                    w = w * _weight_by_intensity(pi, qi, cfg.intensity_scale)
+                if _PLANAR[name]:
+                    d = torch.sum(tn * (q - p), dim=-1)
+                    if strategy[1] == "1":
+                        rw = _weight_by_residual(torch.abs(d),
+                                                 cfg.pt2pl_res_window)
+                        w = w * torch.where(late, rw, 1.0)
+                    ata, atb, J, d = _pt2pl_system(p, q, tn, w)
+                    per_class[name] = ("pl", J, d, w)
+                elif name == "vertex":
+                    A = _pt2pt_rows(p)
+                    b = -(p - q)
+                    if strategy[1] == "1":
+                        rw = _weight_by_residual(
+                            torch.linalg.norm(p - q, dim=-1),
+                            cfg.pt2pt_res_window)
+                        w = w * torch.where(late, rw, 1.0)
+                    ata, atb = _rows_system(A, b, w)
+                    per_class[name] = ("li", A, b, w)
+                else:  # pillar / beam: point-to-line via primary direction
+                    A = _pt2li_rows(p, tn)
+                    b = _pt2li_rhs(p, q, tn)
+                    if strategy[1] == "1":
+                        rw = _weight_by_residual(torch.linalg.norm(b, dim=-1),
+                                                 cfg.pt2li_res_window)
+                        w = w * torch.where(late, rw, 1.0)
+                    ata, atb = _rows_system(A, b, w)
+                    per_class[name] = ("li", A, b, w)
+                ATA = ATA + ata
+                ATb = ATb + atb
 
-        step_t = torch.linalg.norm(T_step[..., :3, 3], dim=-1)
-        step_r = se3.rotation_angle(T_step[..., :3, :3])
-        diverged = (step_t > max_tran) | (step_r > max_rot)
-        converged = (it > 2) & (step_t < cfg.converge_tran) & \
-            (step_r < converge_rot)
-        last_iter = it >= max_iter - 1
+            # solve (ridge epsilon keeps the all-masked case finite)
+            ATA_r = ATA + 1e-6 * eye6
+            x = torch.linalg.solve_ex(ATA_r, ATb)[0]
 
-        # status codes (`cregistration.hpp:1131-1136`)
-        sigma_bad = torch.sqrt(sigma2_new) >= cfg.sigma_thre
-        code_new = torch.where(
-            too_few, -2,
-            torch.where(diverged, -1,
-                        torch.where((converged | last_iter) & sigma_bad, -3,
-                                    torch.where(converged | last_iter, 1,
-                                                0)))).to(torch.int32)
-        done_new = too_few | diverged | converged | last_iter
+            # degeneracy-aware solution remapping (extension of the reference
+            # package): whiten by the diagonal, zero the update along
+            # eigendirections with eigenvalue < degeneracy_thre
+            if cfg.degeneracy_thre > 0.0:
+                tr_t = ATA_r[..., 0, 0] + ATA_r[..., 1, 1] + ATA_r[..., 2, 2]
+                tr_r = ATA_r[..., 3, 3] + ATA_r[..., 4, 4] + ATA_r[..., 5, 5]
+                rho = torch.sqrt(torch.clamp(tr_r, min=1e-9)
+                                 / torch.clamp(tr_t, min=1e-9))
+                s_bal = torch.cat(
+                    [torch.ones((*lead, 3), dtype=f32, device=dev),
+                     rho[..., None].expand(*lead, 3)], -1)
+                norm = torch.clamp(tr_t / 3.0, min=1e-9)
+                Ahat = (ATA_r / s_bal[..., :, None] / s_bal[..., None, :]
+                        / norm[..., None, None])
+                with trace.sync("eigh"):
+                    lam, Vh = torch.linalg.eigh(Ahat)
+                keep = (lam >= cfg.degeneracy_thre).to(f32)
+                z = s_bal * x
+                x = matvec(Vh, keep * matvec(Vh.transpose(-1, -2), z)) / s_bal
 
-        apply_step = ~(too_few | diverged)
-        T_new = where(apply_step, matmul(T_step, T), T)
-        # anneal thresholds for the next iteration
-        thre_new = torch.clamp(thre / cfg.dis_thre_update_rate,
-                               min=cfg.corr_dis_thre_min)
+            # residuals at the solution -> posterior sigma^2
+            for name in used:
+                kind, A_or_J, b_or_d, w = per_class[name]
+                if kind == "pl":
+                    r = matvec(A_or_J, x) - b_or_d
+                    vtpv = vtpv + fsum(w * r * r, -1)
+                    nobs = nobs + torch.sum(w > 0, -1)
+                else:
+                    r = matvec(A_or_J, x[..., None, :]) - b_or_d
+                    vtpv = vtpv + fsum(w * torch.sum(r * r, -1), -1)
+                    nobs = nobs + 3.0 * torch.sum(w > 0, -1)
+            sigma2_new = vtpv / torch.clamp(nobs - 6.0, min=1.0)
 
-        # freeze once done: the masked update equals the early exit
-        live = ~done
-        it = torch.where(live, it + 1, it)
-        T = where(live, T_new, T)
-        thre = where(live, thre_new, thre)
-        code = torch.where(live, code_new, code)
-        sigma2 = torch.where(live & apply_step, sigma2_new, sigma2)
-        info = where(live & apply_step, info_new, info)
-        conf = torch.where(live, conf_new.to(f32), conf)
-        done = done | done_new
+            # un-centre: T_step = Trans(c) @ T'(x) @ Trans(-c)
+            Tp = se3.from_x(x)
+            T_step = matmul(matmul(_translation(center), Tp),
+                            _translation(-center))
+
+            # information matrix in the uncentred frame:
+            # ATA_unc = G^-T ATA G^-1
+            Ginv = eye6.expand(*lead, 6, 6).clone()
+            Ginv[..., :3, 3:] = -se3.skew(center)
+            ATA_unc = matmul(matmul(Ginv.transpose(-1, -2), ATA_r), Ginv)
+            # euler -> quaternion covariance propagation
+            # (`cregistration.hpp:1953-1964, 2795-2836`)
+            Jbig = eye6.expand(*lead, 6, 6).clone()
+            Jbig[..., 3:, 3:] = se3.quat_euler_jacobi(x[..., 3:6])
+            cof = torch.linalg.inv_ex(ATA_unc)[0]
+            cof_q = matmul(matmul(Jbig, cof), Jbig.transpose(-1, -2))
+            info_new = torch.linalg.inv_ex(cof_q + 1e-12 * eye6)[0] \
+                / torch.clamp(sigma2_new, min=1e-12)[..., None, None]
+
+            step_t = torch.linalg.norm(T_step[..., :3, 3], dim=-1)
+            step_r = se3.rotation_angle(T_step[..., :3, :3])
+            diverged = (step_t > max_tran) | (step_r > max_rot)
+            converged = (it > 2) & (step_t < cfg.converge_tran) & \
+                (step_r < converge_rot)
+            last_iter = it >= max_iter - 1
+
+            # status codes (`cregistration.hpp:1131-1136`)
+            sigma_bad = torch.sqrt(sigma2_new) >= cfg.sigma_thre
+            stop = converged | last_iter
+            code_new = torch.where(
+                too_few, -2,
+                torch.where(diverged, -1,
+                            torch.where(stop & sigma_bad, -3,
+                                        torch.where(stop, 1, 0)))
+            ).to(torch.int32)
+            done_new = too_few | diverged | converged | last_iter
+
+            apply_step = ~(too_few | diverged)
+            T_new = where(apply_step, matmul(T_step, T), T)
+            # anneal thresholds for the next iteration
+            thre_new = torch.clamp(thre / cfg.dis_thre_update_rate,
+                                   min=cfg.corr_dis_thre_min)
+
+            # freeze once done: the masked update equals the early exit
+            live = ~done
+            it = torch.where(live, it + 1, it)
+            T = where(live, T_new, T)
+            thre = where(live, thre_new, thre)
+            code = torch.where(live, code_new, code)
+            sigma2 = torch.where(live & apply_step, sigma2_new, sigma2)
+            info = where(live & apply_step, info_new, info)
+            conf = torch.where(live, conf_new.to(f32), conf)
+            done = done | done_new
 
     # re-orthonormalize the accumulated rotation
     T = T.clone()

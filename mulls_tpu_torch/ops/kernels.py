@@ -26,12 +26,14 @@ replaces lives in ``tools/perf_mfu_roofline.py``.
 
 Dispatch: a wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  Each wrapper counts its
-launches in a plain integer attribute (``nn.launches`` etc.), incremented
-where the kernel is launched and nowhere else.  ``nn.launches`` counts every
-launch of the nn kernel, ``nn_grouped.launches`` those made for
-:func:`nn_grouped`.  The SLAM pipeline launches from two host threads, so
-the counts are taken under a lock, and :func:`count_launches` gives one
-thread's own launches (the back end's apart from the front end's).
+launches under its own name with ``core/trace.py``'s counters, where the
+kernel is launched and nowhere else: ``nn`` counts every launch of the nn
+kernel, ``nn_grouped`` those made for :func:`nn_grouped`.
+:func:`launch_counts` reads the process's totals (the SLAM pipeline
+launches from two host threads), and :func:`count_launches` gives one
+thread's own launches (the back end's apart from the front end's): a trace
+record that starts with the kernels' keys and also holds what else the
+thread counts while it is open (spans, syncs).
 
 Batches: the wrappers of nn, moments and pca_moments take inputs with
 leading batch dimensions (``[S, Q, 3]`` queries against ``[S, P, 3]``
@@ -56,7 +58,6 @@ metre-scale coordinates moves boundary points).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -70,6 +71,8 @@ from pathlib import Path
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from mulls_tpu_torch.core import trace
 
 _BIG = 3.0e38
 
@@ -282,49 +285,30 @@ def _dispatch(device: torch.device) -> bool:
     raise ValueError(f"no kernel or plain path for device {device}")
 
 
+LAUNCH_KEYS = ("nn", "nn_grouped", "moments", "pca_moments", "count_within")
+
+
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for fn in (nn, nn_grouped, moments, pca_moments, count_within):
-            fn.launches = 0
+    trace.reset(LAUNCH_KEYS)
 
 
 def launch_counts() -> dict:
-    return {"nn": nn.launches, "nn_grouped": nn_grouped.launches,
-            "moments": moments.launches, "pca_moments": pca_moments.launches,
-            "count_within": count_within.launches}
-
-
-_count_lock = threading.Lock()
-_thread = threading.local()
+    """Every thread's launches of each kernel since the last reset."""
+    return trace.totals(LAUNCH_KEYS)
 
 
 def _count(fn) -> None:
-    """One launch of ``fn``'s kernel: added to its total (``fn.launches``,
-    all threads) and to the calling thread's open :func:`count_launches`
-    record, if any."""
-    with _count_lock:
-        fn.launches += 1
-    rec = getattr(_thread, "rec", None)
-    if rec is not None:
-        rec[fn.__name__] += 1
+    """One launch of ``fn``'s kernel, counted under ``fn``'s name."""
+    trace.count(fn.__name__)
 
 
-@contextlib.contextmanager
 def count_launches():
     """The calling thread's view of the launch counters: yields a dict
     {name: launches} of the kernels this thread launches while entered
-    (launches from other threads are not in it).  Nested records also add
+    (launches from other threads are not in it), with whatever else the
+    thread counts meanwhile (``core/trace.py``).  Nested records also add
     to the enclosing one."""
-    outer = getattr(_thread, "rec", None)
-    rec = dict.fromkeys(launch_counts(), 0)
-    _thread.rec = rec
-    try:
-        yield rec
-    finally:
-        _thread.rec = outer
-        if outer is not None:
-            for name, k in rec.items():
-                outer[name] += k
+    return trace.record(LAUNCH_KEYS)
 
 
 # --------------------------------------------------------------------------
@@ -484,10 +468,6 @@ def nn(q_xyz: torch.Tensor, q_mask: torch.Tensor, p_xyz: torch.Tensor,
     return _nn_cuda([problem], grouped=False)[0]
 
 
-nn.launches = 0
-nn_grouped.launches = 0
-
-
 # --------------------------------------------------------------------------
 # radius moments (adjacency @ features), optional close sub-neighborhood
 # --------------------------------------------------------------------------
@@ -575,9 +555,6 @@ def moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
         _ptr(counters), _ptr(sums), _ptr(csums), _stream(q_xyz)), "moments")
     _count(moments)
     return sums, csums
-
-
-moments.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -677,9 +654,6 @@ def pca_moments(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
         _stream(q_xyz)), "pca_moments")
     _count(pca_moments)
     return cnt, s1, s2
-
-
-pca_moments.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -862,4 +836,3 @@ def count_within(q_xyz: torch.Tensor, p_xyz: torch.Tensor,
     return out
 
 
-count_within.launches = 0

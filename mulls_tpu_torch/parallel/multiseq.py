@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from mulls_tpu_torch.config import MullsConfig
+from mulls_tpu_torch.core import trace
 from mulls_tpu_torch.core.draws import Draws, GeneratorDraws, StackedDraws
 from mulls_tpu_torch.core.tree import tree_map
 from mulls_tpu_torch.ops import kernels
@@ -84,17 +85,20 @@ class _Block:
         for k, feed in enumerate(self.feeds):
             if i < self.lens[k]:
                 self.last[k] = next(feed)
-        raw = tree_map(lambda *xs: torch.stack(xs), *self.last)
-        with kernels.count_launches() as rec:
+        with trace.span("step.stack"):
+            raw = tree_map(lambda *xs: torch.stack(xs), *self.last)
+        with kernels.count_launches() as rec, trace.span("step"):
             self.state, out = slam_step(self.state, raw, cfg, frame=i)
             self.pending.append(out.vec)
-        for name, k in rec.items():
-            self.launches[name] += k
+        for name in self.launches:
+            self.launches[name] += rec[name]
 
     def fetch(self) -> None:
         """The segment's one device-to-host copy."""
         if self.pending:
-            self.parts.append(torch.stack(self.pending, 1).cpu().numpy())
+            with trace.span("segment.fetch"), trace.sync("fetch"):
+                self.parts.append(
+                    torch.stack(self.pending, 1).cpu().numpy())
             self.pending = []
 
     def results(self) -> List[OdometryResult]:
@@ -149,7 +153,10 @@ class MultiSeqPipeline:
         when given, runs at the end of each lockstep segment, after every
         block of this process has fetched its results (a sync), with the
         frame count done: the hook a measurement brackets a steady window
-        with."""
+        with.  Each segment is the span ``segment``, closed before the
+        hook runs; inside it each frame's wait for its feeds
+        (``feed.wait``), its stack of the S frames (``step.stack``), its
+        step (``step``) and the segment's copy (``segment.fetch``)."""
         cfg = self.cfg
         S = len(datasets)
         n_mesh = self.mesh.size
@@ -177,11 +184,12 @@ class MultiSeqPipeline:
             for i0 in range(0, n_max, self.segment):
                 cfg = self.cfg if i0 <= warm_lim else self.cfg_steady
                 done = min(i0 + self.segment, n_max)
-                for i in range(i0, done):
+                with trace.span("segment"):
+                    for i in range(i0, done):
+                        for blk in blocks:
+                            blk.step(cfg, i)
                     for blk in blocks:
-                        blk.step(cfg, i)
-                for blk in blocks:
-                    blk.fetch()
+                        blk.fetch()
                 if on_segment is not None:
                     on_segment(done)
                 if progress:

@@ -21,7 +21,6 @@ a copy.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import queue
 import threading
@@ -34,9 +33,11 @@ import torch
 
 from mulls_tpu_torch.backend.submap import REG_EDGE, SlamBackend
 from mulls_tpu_torch.config import MullsConfig
+from mulls_tpu_torch.core import trace
 from mulls_tpu_torch.core.device import resolve_device
 from mulls_tpu_torch.core.draws import Draws, GeneratorDraws
-from mulls_tpu_torch.pipeline.odometry import (OdometryResult, StepOut,
+from mulls_tpu_torch.pipeline.odometry import (STAGE_COLUMNS,
+                                               OdometryResult, StepOut,
                                                init_state, prefetch_frames,
                                                slam_step)
 
@@ -207,7 +208,8 @@ class SlamPipeline:
             i0, k_real, vecs_dev, lmap = entry
             seg_end = i0 + k_real
             t0 = time.perf_counter()
-            vecs_np = vecs_dev.cpu().numpy()  # waits for the segment
+            with trace.sync("fetch"):  # waits for the segment
+                vecs_np = vecs_dev.cpu().numpy()
             if not stage_timing:
                 timings[i0:seg_end, 2] = (time.perf_counter() - t0) * 1e3 \
                     / k_real
@@ -264,34 +266,21 @@ class SlamPipeline:
             save_checkpoint(self.checkpoint_path, state, frame_idx, poses,
                             poses_odom, codes, sigmas, backend, self.draws)
 
-        spans = {}
-
-        @contextlib.contextmanager
-        def _timer(name):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            yield
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            spans[name] = (time.perf_counter() - t0) * 1e3
-
         ship_ts = cfg.map.motion_compensation_method == 1
         frames = prefetch_frames(_View(dataset, i), dev, with_ts=ship_ts)
         if stage_timing:
-            col = {"feature": 0, "map": 1, "reg": 2}
             seg_vecs, i0 = [], i
-            for raw in frames:
-                state, out = slam_step(state, raw, cfg, timer=_timer)
-                for name, ms in spans.items():
-                    timings[i, col[name]] = ms
-                seg_vecs.append(out.vec)
-                i += 1
-                if len(seg_vecs) == self.segment or i == n:
-                    _process((i0, len(seg_vecs), torch.stack(seg_vecs),
-                              state.local_map))
-                    seg_vecs, i0 = [], i
-                    seg_count += 1
+            with trace.StageClock(dev, STAGE_COLUMNS) as clock:
+                for raw in frames:
+                    state, out = slam_step(state, raw, cfg)
+                    timings[i, :3] = clock.lap()
+                    seg_vecs.append(out.vec)
+                    i += 1
+                    if len(seg_vecs) == self.segment or i == n:
+                        _process((i0, len(seg_vecs), torch.stack(seg_vecs),
+                                  state.local_map))
+                        seg_vecs, i0 = [], i
+                        seg_count += 1
         else:
             # ALL segment post-processing (the fetch of the segment's
             # results, pose chaining, the back end) runs on ONE worker

@@ -23,8 +23,9 @@ neighbourhood sum into its parts:
 
 Both wrappers follow :mod:`mulls_tpu_torch.ops.kernels`: the plain version
 only for tensors on the CPU, the kernel or an error on CUDA, and a launch
-count (``count_within.launches``, ``adj_stack.launches``).  The probe's
-:func:`reset_launch_counts` / :func:`launch_counts` cover these two.
+count (``core/trace.py``'s counters ``count_within`` and ``adj_stack``).
+The probe's :func:`reset_launch_counts` / :func:`launch_counts` cover these
+two.
 
 The probe's inputs are the TPU tool's: numpy ``default_rng(0)``, clouds
 uniform in (-40, 40) m, r^2 = 1, the same shapes drawn in the same order.
@@ -53,6 +54,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mulls_tpu_torch.core import trace
 from mulls_tpu_torch.core.device import resolve_device
 from mulls_tpu_torch.ops import kernels
 from mulls_tpu_torch.ops.kernels import (_check, _check_launch, _dispatch,
@@ -134,22 +136,19 @@ def adj_stack(q_xyz: torch.Tensor, p_xyz: torch.Tensor, p_mask: torch.Tensor,
     _check_launch(kernels.library().mulls_adj_stack(
         _ptr(q_xyz), _ptr(r2), _ptr(p4), _ptr(stack), qn, pn, cn, _ptr(sums),
         _stream(q_xyz)), "adj_stack")
-    adj_stack.launches += 1
+    trace.count("adj_stack")
     return sums
 
 
-adj_stack.launches = 0
+_LAUNCH_KEYS = ("count_within", "adj_stack")
 
 
 def reset_launch_counts() -> None:
-    with kernels._count_lock:
-        count_within.launches = 0
-        adj_stack.launches = 0
+    trace.reset(_LAUNCH_KEYS)
 
 
 def launch_counts() -> dict:
-    return {"count_within": count_within.launches,
-            "adj_stack": adj_stack.launches}
+    return trace.totals(_LAUNCH_KEYS)
 
 
 # --------------------------------------------------------------------------
